@@ -9,9 +9,10 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 2. Build: every CUDA kernel of ``deepipr_tpu_torch/csrc`` with nvcc (sm_90a)
    into ``build/deepipr_tpu_torch/``.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes and the JAX package's test shapes, then timed
-   beside its plain version, a library yardstick and its memory bound.
-4. Model: ResNet18Private at CIFAR-10 width with
+   the main paths' shapes and the JAX package's test shapes, then timed
+   beside its plain version, a library yardstick where one exists and its
+   memory bound.
+4. Serving: ResNet18Private at CIFAR-10 width with
    passport_configs/resnet18_passport.json, random weights, passports and BN
    statistics from ``--seed``. The serving path runs through the public
    entry points (Predictor for both branches, the both-branch eval step,
@@ -21,6 +22,13 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 5. Throughput: Predictor images/s for both branches at batch 256 and 1024,
    the verification latency, and each branch's device time by kernel
    from torch.profiler (printed, not asserted).
+6. Training (bench.py's path): V2 ResNet18Private from ``--seed``, SGD
+   (lr 0.01, momentum 0.9, decay 1e-4), batch 256, pad 4, one warm-up and
+   three timed device-resident epochs over 12,800 synthetic uint8 images,
+   with the launch counts set to 0 just before and read just after (K1 once
+   per step, K2 never); the loss and sign loss must fall. Then two steps
+   on the card against the same two steps on the CPU, the trained model
+   through the serving entry points, and one profiled train step.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
@@ -55,6 +63,20 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
 # the card's model against the CPU's: convolutions accumulate in other
 # orders (tests/test_torch_export.py:102's tolerance)
 LOGITS_TOL = dict(rtol=1e-3, atol=2e-4)
+# K1 normalized against its plain version: tests/test_pallas_augment.py's
+# tolerance (1 ulp); the pixels before normalizing must agree bit for bit
+AUGMENT_TOL = dict(rtol=0.0, atol=3e-7)
+# the training slice (bench.py:47, 57-71): 50 steps per epoch
+TRAIN_IMAGES, TRAIN_BATCH, TRAIN_PAD, TRAIN_LR = 12800, 256, 4, 0.01
+TIMED_EPOCHS = 3
+# two train steps on the card against the same two on the CPU: metrics and
+# BN statistics elementwise; each parameter's update (after - before)
+# norm-wise, since a pre-ReLU value within float32 noise of zero lands on
+# opposite sides in cuDNN and on the CPU and moves whole gradients
+# (tests/test_torch_port_train.py, PARAM_TOL)
+PARITY_BATCH = 32
+TRAIN_TOL = dict(rtol=1e-3, atol=1e-4)
+UPDATE_TOL = 5e-2
 
 
 def log(*parts):
@@ -182,6 +204,100 @@ def time_epilogue(gen, timer: DeviceTimer, shape) -> dict:
         "ms": timer.ms(lambda: passport_epilogue(*args)),
         "plain_ms": timer.ms(lambda: passport_epilogue_reference(*args)),
         "library_ms": timer.ms(library),
+        "bound_ms": bound[bound_by],
+        "bound_by": bound_by,
+    }
+
+
+def augment_cases(seed: int):
+    """K1's inputs on the card: (label, set, idx, (oy, ox, flip), pad). The
+    training batch from the 12,800-image set, batch 1 and 13, the tests'
+    16x16 shape, and every extreme draw (offsets 0 and 2*pad, flip on and
+    off)."""
+    from deepipr_tpu_torch.data.device_augment import draw_augment
+
+    rng = np.random.default_rng(seed)
+    big = torch.from_numpy(rng.integers(
+        0, 256, (TRAIN_IMAGES, 32, 32, 3), dtype=np.uint8)).cuda()
+    small = torch.from_numpy(rng.integers(
+        0, 256, (64, 16, 16, 3), dtype=np.uint8)).cuda()
+    gen = torch.Generator().manual_seed(seed)
+    cases = []
+    for label, ds, b, pad in (("B=256 32x32 pad 4", big, TRAIN_BATCH, 4),
+                              ("B=1 32x32 pad 4", big, 1, 4),
+                              ("B=13 32x32 pad 4", big, 13, 4),
+                              ("B=16 16x16 pad 2", small, 16, 2)):
+        idx = torch.randperm(ds.shape[0], generator=gen)[:b].int()
+        draws = draw_augment(gen, b, pad)
+        cases.append((label, ds, idx.cuda(), tuple(t.cuda() for t in draws),
+                      pad))
+    extremes = torch.tensor([(oy, ox, f) for oy in (0, 8) for ox in (0, 8)
+                             for f in (0, 1)] * 2, dtype=torch.int32)
+    idx = torch.randperm(TRAIN_IMAGES, generator=gen)[:len(extremes)].int()
+    cases.append(("extreme draws 32x32 pad 4", big, idx.cuda(),
+                  tuple(extremes[:, i].contiguous().cuda() for i in range(3)),
+                  4))
+    return cases
+
+
+def check_augment(cases) -> float:
+    """K1 against its plain version on the same card tensors: the pixels
+    (mean 0, std 1/255) bit for bit, the normalized batch at AUGMENT_TOL.
+    Returns the largest normalized error."""
+    from deepipr_tpu_torch.data.device_augment import (
+        augment_reference,
+        scaled_stats,
+    )
+    from deepipr_tpu_torch.ops.fused_augment import fused_augment
+
+    zero = torch.zeros(3, device="cuda")
+    one = torch.ones(3, device="cuda")
+    worst = 0.0
+    for label, ds, idx, draws, pad in cases:
+        for stats, tol in (((zero, one), None),
+                           (scaled_stats(device="cuda"), AUGMENT_TOL)):
+            got = fused_augment(ds, idx, *draws, *stats, pad)
+            torch.cuda.synchronize()
+            want = augment_reference(ds[idx.long()], *draws, pad, *stats)
+            if got.shape != want.shape or got.dtype != torch.float32:
+                raise AssertionError(f"fused_augment {label}: got "
+                                     f"{got.dtype} {tuple(got.shape)}")
+            if tol is None:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"fused_augment {label}: pixels "
+                                         "differ from the plain version")
+            else:
+                torch.testing.assert_close(got, want, **tol)
+                worst = max(worst, (got - want).abs().max().item())
+        log(f"fused_augment {label}: agrees with the plain version (pixels "
+            "bit for bit, normalized within 3e-7)")
+    return worst
+
+
+def time_augment(timer: DeviceTimer, case) -> dict:
+    from deepipr_tpu_torch.data.device_augment import (
+        augment_reference,
+        scaled_stats,
+    )
+    from deepipr_tpu_torch.ops.fused_augment import fused_augment
+
+    _, ds, idx, draws, pad = case
+    mean255, std255 = scaled_stats(device="cuda")
+    _, h, w, c = ds.shape
+    b = idx.shape[0]
+    # the gathered rows read once, the f32 batch written once, four int32
+    # per row (idx, oy, ox, flip) and the two (C,) f32 statistics
+    nbytes = b * h * w * c * (1 + 4) + 16 * b + 8 * c
+    flops = 2 * b * h * w * c  # a subtract and a divide per output
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / F32_FLOPS_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {
+        "ms": timer.ms(lambda: fused_augment(ds, idx, *draws, mean255,
+                                             std255, pad)),
+        "plain_ms": timer.ms(lambda: augment_reference(
+            ds[idx.long()], *draws, pad, mean255, std255)),
+        "library_ms": None,  # no single PyTorch call gathers, crops and flips
         "bound_ms": bound[bound_by],
         "bound_by": bound_by,
     }
@@ -324,13 +440,40 @@ def throughput(gpu_model, smi: str) -> None:
         f"over 20 calls [{smi}]")
 
 
-def where_time_goes(gpu_model, smi: str, reps: int = 5) -> None:
-    """Device time by kernel over ``reps`` forwards of each branch at batch
-    256, from torch.profiler's CUDA activity, and the card's idle share
-    between the first kernel's start and the last one's end."""
+def profiled(fn, reps: int, what: str, smi: str, top: int = 12) -> dict:
+    """Run ``fn`` ``reps`` times under torch.profiler; log the device time
+    per run by kernel and the card's idle share between the first kernel's
+    start and the last one's end. Returns {kernel name: us per run}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the card")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    log(f"profile: {what}: {busy / reps / 1e3:.3f} ms of kernels per run, "
+        f"{len(kernels) / reps:.0f} kernels, card idle "
+        f"{100 * (1 - busy / span):.1f} % of the span [{smi}]")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {100 * us / busy:5.1f} %  {us / reps:9.1f} us/run  "
+            f"{name[:100]}")
+    return {name: us / reps for name, us in by_name.items()}
+
+
+def where_time_goes(gpu_model, smi: str, reps: int = 5) -> None:
+    """Device time by kernel over ``reps`` forwards of each branch at batch
+    256."""
     from deepipr_tpu_torch.serve import Predictor
 
     x = torch.randn((REQUEST_BATCH, 32, 32, 3),
@@ -339,28 +482,194 @@ def where_time_goes(gpu_model, smi: str, reps: int = 5) -> None:
         pred = Predictor(gpu_model, ind=ind)
         for _ in range(3):
             pred.logits(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                pred.logits(x)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kernels:
-            raise AssertionError("the profiler saw no kernel on the card")
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        busy = sum(by_name.values())
-        span = (max(e.time_range.end for e in kernels)
-                - min(e.time_range.start for e in kernels))
-        log(f"profile: ind={ind} forward, batch {REQUEST_BATCH}: "
-            f"{busy / reps / 1e3:.3f} ms of kernels per forward, "
-            f"{len(kernels) / reps:.0f} kernels, card idle "
-            f"{100 * (1 - busy / span):.1f} % of the span [{smi}]")
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-            log(f"  {100 * us / busy:5.1f} %  {us / reps:9.1f} us/forward  "
-                f"{name[:100]}")
+        profiled(lambda: pred.logits(x), reps,
+                 f"ind={ind} forward, batch {REQUEST_BATCH}", smi)
+
+
+# ------------------------------------------------------------- training
+
+def train_model(seed: int, device: str):
+    """bench.py's model: V2 ResNet18Private, resnet18_passport.json with
+    ('bn', 'shuffle', 0.1), weights, passports and signatures from seed."""
+    from deepipr_tpu_torch.models.registry import build_model
+    from deepipr_tpu_torch.utils.config import (
+        construct_passport_kwargs,
+        load_passport_config,
+    )
+
+    kw, _ = construct_passport_kwargs(
+        load_passport_config("passport_configs/resnet18_passport.json"),
+        "bn", "shuffle", 0.1)
+    return build_model("resnet18", 10, norm_type="bn", passport_kwargs=kw,
+                       private=True, seed=seed, device=device)
+
+
+def train_path(seed: int, smi: str, launches, reset):
+    """bench.py's loop through the port's entry points: one warm-up and
+    TIMED_EPOCHS timed epochs, host-clocked with one read of the epoch's
+    mean metrics at its end; img/s from the best timed epoch. Returns the
+    trained model, its state, the resident set, the path's launch counts
+    and held-out batches of the same synthetic distribution."""
+    from deepipr_tpu_torch.data.datasets import normalize, synthetic_dataset
+    from deepipr_tpu_torch.train.epoch import (
+        device_resident,
+        make_epoch_train_fn,
+    )
+    from deepipr_tpu_torch.train.state import TrainState
+
+    x, y, x_test, y_test = synthetic_dataset(
+        num_train=TRAIN_IMAGES, num_test=2 * REQUEST_BATCH, size=32, seed=seed)
+    held_out = [{"image": normalize(x_test[i:i + REQUEST_BATCH]),
+                 "label": y_test[i:i + REQUEST_BATCH]}
+                for i in range(0, len(x_test), REQUEST_BATCH)]
+    model = train_model(seed, "cuda")
+    xs, ys = device_resident(x, y)
+    epoch_fn = make_epoch_train_fn(model, True, TRAIN_BATCH, TRAIN_PAD,
+                                   seed=seed)
+    state = TrainState.create(model, TRAIN_LR)
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset()
+    history, seconds = [], []
+    for epoch in range(1 + TIMED_EPOCHS):
+        t = time.perf_counter()
+        state, metrics = epoch_fn(state, xs, ys, epoch_key=1000 * seed + epoch)
+        values = torch.stack(list(metrics.values())).tolist()  # one sync
+        seconds.append(time.perf_counter() - t)
+        history.append(dict(zip(metrics, values)))
+        log(f"train epoch {epoch} ({'warm-up' if epoch == 0 else 'timed'}): "
+            f"{seconds[-1]:.3f} s, {history[-1]}")
+    counts = launches()
+
+    log(f"training-path launches: {counts}")
+    epochs = 1 + TIMED_EPOCHS
+    if counts["fused_augment"] != steps * epochs:
+        raise AssertionError(f"fused_augment launched {counts['fused_augment']}"
+                             f" times in {epochs} epochs of {steps} steps")
+    if counts["passport_epilogue"] != 0:
+        raise AssertionError("the eval-only passport epilogue launched "
+                             "during training")
+    for k in ("loss", "sign_loss"):
+        if not history[-1][k] < history[0][k]:
+            raise AssertionError(f"mean {k} did not fall: {history[0][k]} in "
+                                 f"the first epoch, {history[-1][k]} in the "
+                                 "last")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"non-finite training metrics {history}")
+    best = min(seconds[1:])
+    log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH} f32 "
+        f"(TF32 off), device-resident epoch incl. K1: "
+        f"{steps * TRAIN_BATCH / best:.1f} img/s (best of {TIMED_EPOCHS} "
+        f"epochs: {', '.join(f'{s:.3f}' for s in seconds[1:])} s) [{smi}]")
+    log(f"peak device memory, training: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return model, state, xs, ys, counts, held_out
+
+
+def train_parity(seed: int) -> None:
+    """Two steps from the same weights, permutation and draws: the card
+    through the kernels, the CPU through their plain versions."""
+    from deepipr_tpu_torch.data.datasets import synthetic_dataset
+    from deepipr_tpu_torch.data.device_augment import draw_augment
+    from deepipr_tpu_torch.train.epoch import (
+        device_resident,
+        make_epoch_train_fn,
+    )
+    from deepipr_tpu_torch.train.state import TrainState
+
+    x, y, _, _ = synthetic_dataset(num_train=2 * PARITY_BATCH, num_test=0,
+                                   size=32, seed=seed + 3)
+    gen = torch.Generator().manual_seed(seed + 4)
+    perm = torch.randperm(len(x), generator=gen)
+    draws = [draw_augment(gen, PARITY_BATCH, TRAIN_PAD) for _ in range(2)]
+    cpu_model = train_model(seed + 3, "cpu")
+    start = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
+    runs = {}
+    for dev, model in (("cpu", cpu_model),
+                       ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
+        fn = make_epoch_train_fn(
+            model, True, PARITY_BATCH, TRAIN_PAD, device=dev,
+            draws=lambda step, n, dev=dev: tuple(t.to(dev)
+                                                 for t in draws[step]))
+        state = TrainState.create(model, TRAIN_LR)
+        state, metrics = fn(state, *device_resident(x, y, dev), 0,
+                            perm=perm.to(dev))
+        runs[dev] = (model, {k: v.item() for k, v in metrics.items()})
+    (cpu, cpu_metrics), (gpu, gpu_metrics) = runs["cpu"], runs["cuda"]
+    log(f"train parity: 2 steps at batch {PARITY_BATCH}, card vs CPU: "
+        f"metrics {gpu_metrics} vs {cpu_metrics}")
+    gpu_state = gpu.state_dict()
+    beyond, update_err = {}, {}
+    for name, want in cpu.state_dict().items():
+        got = gpu_state[name].cpu()
+        limit = TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * want.abs()
+        beyond[name] = ((got - want).abs() - limit).max().item()
+        if name in start:
+            update = (want - start[name]).norm().item()
+            update_err[name] = (got - want).norm().item() / max(update, 1e-30)
+    worst = max(beyond, key=beyond.get)
+    worst_update = max(update_err, key=update_err.get)
+    log(f"  largest excess over rtol 1e-3 / atol 1e-4: {beyond[worst]:.3g} "
+        f"at {worst}; largest parameter-update difference "
+        f"{update_err[worst_update]:.3g} of the update's norm at "
+        f"{worst_update}")
+    failed = [k for k, v in cpu_metrics.items()
+              if not abs(gpu_metrics[k] - v)
+              <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(v)]
+    failed += [k for k in beyond
+               if k not in start and beyond[k] > 0]  # BN stats, passports
+    failed += [k for k, e in update_err.items() if e > UPDATE_TOL]
+    if failed:
+        raise AssertionError(f"card and CPU training differ in {failed}")
+    log(f"  metrics, BN statistics and passports within rtol 1e-3 / atol "
+        f"1e-4; every parameter's update within {UPDATE_TOL} of its norm")
+
+
+def trained_serving(model, held_out) -> None:
+    """The trained model (left in train mode) through the eval entry
+    points on held-out images; none of them may move a BN running
+    statistic."""
+    from deepipr_tpu_torch.serve import verify_ownership
+    from deepipr_tpu_torch.train.steps import (
+        make_dual_eval_step,
+        make_signature_fn,
+        run_dual_eval,
+    )
+
+    before = {k: b.clone() for k, b in model.named_buffers()}
+    metrics = run_dual_eval(make_dual_eval_step(model), held_out)
+    rates = make_signature_fn(model, (1, 32, 32, 3), True)()
+    verdict = verify_ownership(model, (1, 32, 32, 3), private=True)
+    changed = [k for k, b in model.named_buffers()
+               if not torch.equal(b, before[k])]
+    if changed or not model.training:
+        raise AssertionError(f"the eval entry points moved {changed} or "
+                             "left train mode")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite dual-eval metrics {metrics}")
+    log(f"trained model: dual eval on held-out images {metrics}; signature "
+        f"detection {rates}; "
+        f"verify_ownership detection rate {verdict['detection_rate']:.4f} "
+        f"(verified={verdict['verified']}); no BN statistic moved")
+
+
+def train_profile(model, state, xs, ys, seed: int, smi: str,
+                  reps: int = 3) -> None:
+    """Device time by kernel over ``reps`` train steps at batch 256, K1's
+    share among them."""
+    from deepipr_tpu_torch.train.steps import make_train_step
+
+    step = make_train_step(model, True, pad=TRAIN_PAD, seed=seed)
+    rows = torch.randperm(xs.shape[0], device="cuda")[:TRAIN_BATCH].int()
+    batch = {"image": xs, "index": rows, "label": ys[rows.long()]}
+    step(state, batch)
+    us = profiled(lambda: step(state, batch), reps,
+                  f"train step, batch {TRAIN_BATCH}", smi, top=16)
+    k1 = sum(t for name, t in us.items() if "fused_augment" in name)
+    log(f"  K1 fused_augment: {k1:.1f} us/step, "
+        f"{100 * k1 / sum(us.values()):.2f} % of the step's device time")
 
 
 # ----------------------------------------------------------------- main
@@ -373,47 +682,75 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
+    from deepipr_tpu_torch.ops.fused_augment import fused_augment
     from deepipr_tpu_torch.ops.passport_epilogue import passport_epilogue
 
     smi = environment()
     build_kernels()
 
     gen = torch.Generator().manual_seed(args.seed)
-    max_err = check_epilogue(gen)
+    max_err = {"passport_epilogue": check_epilogue(gen)}
+    cases = augment_cases(args.seed)
+    max_err["fused_augment"] = check_augment(cases)
     timer = DeviceTimer()
     timing = {}
     for shape in (MAIN_SHAPE, (1024, 512, 4, 4)):
         timing[shape] = time_epilogue(gen, timer, shape)
         log(f"passport_epilogue {shape}: {json.dumps(timing[shape])} [{smi}]")
+    timing["fused_augment"] = time_augment(timer, cases[0])
+    log(f"fused_augment {cases[0][0]}: {json.dumps(timing['fused_augment'])} "
+        f"[{smi}]")
+    del cases, timer
+
+    wrappers = {"passport_epilogue": passport_epilogue,
+                "fused_augment": fused_augment}
+
+    def launches():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
 
     cpu_model = random_model(args.seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batches = request_batches(3, args.seed)
     forged = forged_passports(cpu_model, args.seed + 2)
 
-    def launches():
-        return {"passport_epilogue": passport_epilogue.launches}
-
-    passport_epilogue.launches = 0
+    reset()
     serve_path(gpu_model, cpu_model, batches, forged, launches)
-    counts = launches()
-    log(f"main-path launches: {counts}")
-    if not all(counts.values()):
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    serve_counts = launches()
+    log(f"serving-path launches: {serve_counts}")
+    if not serve_counts["passport_epilogue"]:
+        raise AssertionError(f"K2 never launched on the serving path: "
+                             f"{serve_counts}")
 
     throughput(gpu_model, smi)
     where_time_goes(gpu_model, smi)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del gpu_model, cpu_model
 
+    trained, state, xs, ys, train_counts, held_out = train_path(
+        args.seed, smi, launches, reset)
+    train_parity(args.seed)
+    trained_serving(trained, held_out)
+    train_profile(trained, state, xs, ys, args.seed, smi)
+
+    path_launches = {"passport_epilogue": serve_counts["passport_epilogue"],
+                     "fused_augment": train_counts["fused_augment"]}
+    sources = {
+        "passport_epilogue": "deepipr_tpu/ops/pallas_fused.py:52",
+        "fused_augment": "deepipr_tpu/ops/pallas_augment.py:64",
+    }
     kernels = [{
-        "name": "passport_epilogue",
+        "name": name,
         "route": "cuda",
-        "source": "deepipr_tpu_torch/csrc/passport_epilogue.cu",
-        "replaces": "deepipr_tpu/ops/pallas_fused.py:52",
-        "launches": counts["passport_epilogue"],
-        "max_abs_err": max_err,
-        **timing[MAIN_SHAPE],
-    }]
+        "source": f"deepipr_tpu_torch/csrc/{name}.cu",
+        "replaces": sources[name],
+        "launches": path_launches[name],
+        "max_abs_err": max_err[name],
+        **timing[MAIN_SHAPE if name == "passport_epilogue" else name],
+    } for name in ("passport_epilogue", "fused_augment")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Data helpers used to build request batches (normalize, synthetic data)."""
+"""Data helpers: normalize, synthetic data and the train-time augmentation."""

@@ -1,4 +1,4 @@
-"""Layer blocks: ConvBlock, PassportBlock, PassportPrivateBlock (NCHW, eval).
+"""Layer blocks: ConvBlock, PassportBlock, PassportPrivateBlock (NCHW).
 
 Counterpart of ``deepipr_tpu/models/layers.py`` (reference:
 models/layers/conv2d.py, passportconv2d.py, passportconv2d_private.py).
@@ -10,9 +10,10 @@ models/layers/conv2d.py, passportconv2d.py, passportconv2d_private.py).
 - Passports ``key``/``skey`` (1, C_in, H, W) and the signature ``b`` (C,) are
   buffers; the public ``scale``/``bias`` are parameters.
 - The input, key and skey share one convolution (passport/derive.py).
-- With BN, the derived-affine path ends in the fused epilogue
+- In eval mode with BN, the derived-affine path ends in the fused epilogue
   (ops/passport_epilogue.py), as ``layers.py:164-176`` of the JAX package
-  does; GN/IN/none use the plain path, as there.
+  does. Train mode (batch-statistic BN) and GN/IN/none take the plain path:
+  norm, derived affine, ReLU, as there.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ class _PassportBase(nn.Module):
         (-> ReLU); returns the output and the derived-affine aux."""
         y, key_out, skey_out = fused_conv_passport_outputs(
             x, self.key, self.skey, self.conv)
-        if isinstance(norm, BatchNorm):
+        if isinstance(norm, BatchNorm) and not norm.training:
             mean, var = norm.running_stats()
             y, scale, bias = passport_epilogue(
                 y, key_out, skey_out, mean, var, eps=norm.eps, relu=self.relu)

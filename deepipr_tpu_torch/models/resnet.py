@@ -1,4 +1,4 @@
-"""ResNet family: normal / V1 passport / V2-V3 private passport (NCHW, eval).
+"""ResNet family: normal / V1 passport / V2-V3 private passport (NCHW).
 
 Counterpart of ``deepipr_tpu/models/resnet.py``; topology matches the
 reference (models/resnet_normal.py, resnet_passport.py,
@@ -164,14 +164,17 @@ class ResNet(nn.Module):
 
         self.linear = nn.Linear(512 * block_cls.expansion, num_classes)
         init_weights(self, torch.Generator().manual_seed(seed))
-        self.eval()  # this slice ports the eval path only
+        # built for inference; the train step switches to train mode, and
+        # every eval entry point enters eval mode itself (utils/mode.py)
+        self.eval()
 
     def forward(self, x, ind: int = 0, force_passport: bool = False,
                 start_at: Optional[str] = None,
                 tap_at: Optional[str] = None) -> ResNetOutput:
-        """x: NCHW images, or the ``start_at`` unit's input (the split
-        dual-forward eval, train/steps.py). ``tap_at``: return the named
-        unit's input as ``tap``."""
+        """x: NCHW images, or the ``start_at`` unit's input (the split dual
+        forward, train/steps.py). ``tap_at``: return the named unit's input
+        as ``tap``, with its autograd history, so a loss on the branch that
+        starts there differentiates the prefix through it."""
         if start_at is not None and start_at not in self.unit_names:
             raise ValueError(f"unknown start_at unit {start_at!r}")
         aux: Dict[str, Dict[str, Any]] = {}

@@ -1,4 +1,4 @@
-"""Normalization layers matching the reference's norm-type choices, eval only.
+"""Normalization layers matching the reference's norm-type choices.
 
 Counterpart of ``deepipr_tpu/ops/norms.py``. The reference uses
 (models/layers/conv2d.py:11-18, passportconv2d.py:56-64):
@@ -8,8 +8,7 @@ Counterpart of ``deepipr_tpu/ops/norms.py``. The reference uses
 - 'in': InstanceNorm2d (affine-free, no running stats)
 - 'none': identity
 
-The JAX package keeps flax's BN conventions, which the port holds to once
-training is ported (they do not touch the eval path here):
+Train-mode BN holds to the JAX package's (flax's) conventions:
 
 - W1: the running variance stores the *biased* batch variance (torch's
   ``nn.BatchNorm2d`` stores the unbiased one);
@@ -26,14 +25,17 @@ import torch.nn.functional as F
 from torch import nn
 
 EPS = 1e-5
+# running = BN_MOMENTUM*running + (1-BN_MOMENTUM)*batch; the split dual
+# forward re-applies this EMA for prefix units (train/steps.py)
+BN_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BN over running statistics (``running_mean``/``running_var``).
+    """BN over (N, H, W) per channel, with ``running_mean``/``running_var``.
 
-    Train-mode statistics belong to the training slice; the module raises if
-    asked to normalize in training mode rather than silently using the
-    running stats.
+    Eval mode normalizes with the running statistics. Train mode normalizes
+    with the batch's mean and biased variance and folds both into the
+    running statistics (W1, W2), in place.
     """
 
     def __init__(self, features: int, affine: bool = True, eps: float = EPS):
@@ -47,20 +49,27 @@ class BatchNorm(nn.Module):
         else:
             self.weight = self.bias = None
 
-    def _require_eval(self) -> None:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call model.eval()")
-
     def running_stats(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(mean, var), for consumers that fuse the normalize (the epilogue)."""
-        self._require_eval()
+        """(mean, var), for consumers that fuse the normalize (the epilogue);
+        eval mode only, since train mode normalizes with batch statistics."""
+        if self.training:
+            raise RuntimeError("running_stats() is for eval mode; train-mode "
+                               "BN normalizes with batch statistics")
         return self.running_mean, self.running_var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._require_eval()
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # the running buffers stay out of F.batch_norm, which would store the
+        # unbiased variance (W1)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            for buf, batch in ((self.running_mean, mean),
+                               (self.running_var, var)):
+                buf.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class GroupNorm(nn.Module):

@@ -1,1 +1,1 @@
-"""Passport core: signature codec and passport -> affine derivation."""
+"""Passport core: signature codec, passport -> affine derivation, sign loss."""

@@ -24,6 +24,7 @@ from deepipr_tpu_torch.utils.device import (
     require_on_device,
     resolve_device,
 )
+from deepipr_tpu_torch.utils.mode import eval_mode
 
 
 class Predictor:
@@ -46,9 +47,11 @@ class Predictor:
 
     @torch.inference_mode()
     def logits(self, x) -> torch.Tensor:
-        """x: NHWC f32 batch (numpy or tensor) -> (N, classes) logits."""
-        return self.model(nhwc_to_nchw(x, self.device), ind=self.ind,
-                          force_passport=self.force_passport).logits
+        """x: NHWC f32 batch (numpy or tensor) -> (N, classes) logits, in
+        eval mode whatever the model's mode."""
+        with eval_mode(self.model):
+            return self.model(nhwc_to_nchw(x, self.device), ind=self.ind,
+                              force_passport=self.force_passport).logits
 
     def predict(self, x) -> torch.Tensor:
         return self.logits(x).argmax(dim=-1)

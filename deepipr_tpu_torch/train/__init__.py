@@ -1,1 +1,2 @@
-"""Eval steps and signature detection (the train step is a later slice)."""
+"""Train and eval steps, the SGD schedule, the train state and the
+device-resident epoch."""

@@ -1,34 +1,203 @@
-"""Eval steps, both-branch eval and signature detection.
+"""Train and eval steps for all schemes, plus signature detection.
 
-Counterpart of the eval half of ``deepipr_tpu/train/steps.py`` (:54-78,
-:255-386). The model holds its own weights, so a step is called with a batch
-alone; ``batch["image"]`` is NHWC as in the JAX package, ``batch["label"]``
-integer class ids. Steps return per-batch sums as device tensors, and the
-``run_*`` loops read them back once at the end.
+Counterpart of ``deepipr_tpu/train/steps.py``. Scheme semantics (reference
+experiments/trainer.py, trainer_private.py):
+
+- scheme 0 (baseline) / 1 (V1 passport): one forward; loss = CE + the sum of
+  the passport layers' sign losses (V1 only).
+- scheme 2 (V2) / 3 (V3): two forwards per batch, public ind=0 and private
+  ind=1; loss = CE(pub) + CE(priv) + the private branch's sign losses; BN
+  running statistics are updated by both forwards in turn
+  (trainer_private.py:159-173). V3 concatenates a trigger batch.
+
+The model holds its own weights, so a train step updates ``state`` in place
+and returns it, keeping the JAX call shape ``step(state, batch) -> (state,
+metrics)``; an eval step is called with a batch alone. ``batch["image"]`` is
+NHWC as in the JAX package, ``batch["label"]`` integer class ids. Metrics
+and sums stay device tensors; the ``run_*`` loops and the epoch read them
+back once at the end.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from deepipr_tpu_torch.attacks.common import derived_affines
+from deepipr_tpu_torch.data.device_augment import (
+    Draws,
+    draw_augment,
+    normalize_device,
+    scaled_stats,
+)
 from deepipr_tpu_torch.models.branching import branch_point
+from deepipr_tpu_torch.ops.fused_augment import fused_augment
+from deepipr_tpu_torch.ops.norms import BN_MOMENTUM, BatchNorm
 from deepipr_tpu_torch.passport.codec import bit_accuracy
+from deepipr_tpu_torch.passport.sign_loss import total_sign_loss
+from deepipr_tpu_torch.train.state import TrainState
 from deepipr_tpu_torch.utils.device import (
     DeviceLike,
     nhwc_to_nchw,
     require_on_device,
     resolve_device,
+    seeded_generator,
 )
+from deepipr_tpu_torch.utils.mode import eval_mode
+
+DrawFn = Callable[[int, int], Draws]
+
+
+def cross_entropy_mean(logits, labels, weight=None):
+    """Mean CE; with a per-sample weight vector, the weighted mean (weight-0
+    samples pad a batch and do not count)."""
+    ce = F.cross_entropy(logits, labels, reduction="none")
+    if weight is None:
+        return ce.mean()
+    return (ce * weight).sum() / weight.sum().clamp(min=1.0)
+
+
+def top1_accuracy(logits, labels, weight=None):
+    """Percentage top-1 accuracy (reference accuracy(), trainer.py:28-43)."""
+    hit = (logits.argmax(dim=-1) == labels).to(torch.float32)
+    if weight is None:
+        return 100.0 * hit.mean()
+    return 100.0 * (hit * weight).sum() / weight.sum().clamp(min=1.0)
+
+
+def collect_aux(aux: Dict[str, Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """The model's derived-affine outputs as a list of aux dicts."""
+    return list(aux.values())
 
 
 def collect_aux_with_paths(aux: Dict[str, Dict[str, Any]]
                            ) -> List[Tuple[str, Dict[str, Any]]]:
     """The model's derived-affine outputs as (module path, aux) pairs."""
     return list(aux.items())
+
+
+def seeded_draws(seed: int, pad: int, device: torch.device) -> DrawFn:
+    """draws(step, n) -> (oy, ox, flip) on ``device``, a function of
+    (seed, step) alone: the counterpart of ``fold_in(aug_root, step)``."""
+
+    def draws(step: int, n: int) -> Draws:
+        return draw_augment(seeded_generator(device, seed, step), n, pad)
+
+    return draws
+
+
+def _bn_buffers(modules) -> List[torch.Tensor]:
+    return [buf for m in modules for bn in m.modules()
+            if isinstance(bn, BatchNorm)
+            for buf in (bn.running_mean, bn.running_var)]
+
+
+def make_train_step(model, private: bool, split_branches: bool = True,
+                    pad: Optional[int] = None, remat: str = "none",
+                    seed: int = 0, draws: Optional[DrawFn] = None,
+                    device: DeviceLike = "cuda"):
+    """Build the SGD train step for this model and scheme.
+
+    Returns step(state, batch) -> (state, metrics), which updates ``state``
+    (the model's weights and buffers, the momentum, the step counter) in
+    place and puts the model in train mode. Metrics are detached device
+    tensors: 'loss' (the CE part), 'sign_loss', 'sign_acc', and 'acc' or
+    'acc_public'/'acc_private'.
+
+    pad=None: ``batch["image"]`` is a normalized NHWC float batch. pad=int:
+    it is raw uint8 NHWC, either the batch or, with ``batch["index"]``, the
+    set the batch's rows are gathered from; kernel K1
+    (ops/fused_augment.py) gathers, pads by ``pad``, crops, flips and
+    normalizes in one launch. Its draws come from ``draws(state.step, n)``,
+    by default ``seeded_draws(seed, pad, device)``; tests inject JAX's. V3:
+    ``batch["wm_image"]`` (uint8) is normalized only and appended, with
+    ``batch["wm_label"]``. ``batch["weight"]``: optional per-sample loss
+    weights.
+
+    split_branches (private models): the public and private forwards agree
+    up to the first passport block, so the shared prefix runs once and the
+    private branch starts from its output (models/branching.py). The
+    reference's two full forwards update the prefix's BN statistics twice
+    with the same batch statistics; the split step re-applies the EMA to the
+    prefix units (W3):
+        r1 = m*r0 + (1-m)*s  (prefix ran once)
+        r2 = m*r1 + (1-m)*s = r1 + m*(r1 - r0)
+    Gradients are unchanged: CE0(f(x)) + CE1(g(f(x))) differentiates the
+    prefix f once through both terms either way.
+    """
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP queue 1, item 1: "
+            "remat='full'); only 'none' runs")
+    dev = resolve_device(device)
+    require_on_device(model, dev)
+    fork = branch_point(model) if private and split_branches else None
+    prefix_bufs, snapshot = [], []
+    if fork is not None:
+        prefix_bufs = _bn_buffers(getattr(model, u) for u in fork[1])
+        snapshot = [torch.empty_like(b) for b in prefix_bufs]
+    if pad is not None:
+        mean255, std255 = scaled_stats(device=dev)
+        draws = draws or seeded_draws(seed, pad, dev)
+
+    def inputs(state: TrainState, batch):
+        y = torch.as_tensor(batch["label"], device=dev).long()
+        if pad is None:
+            return nhwc_to_nchw(batch["image"], dev), y
+        images = torch.as_tensor(batch["image"], device=dev).contiguous()
+        index = batch.get("index")
+        if index is None:
+            index = torch.arange(images.shape[0], device=dev)
+        index = torch.as_tensor(index, device=dev).to(torch.int32)
+        oy, ox, flip = draws(state.step, index.shape[0])
+        x = fused_augment(images, index, oy, ox, flip, mean255, std255, pad)
+        if "wm_image" in batch:
+            wm = torch.as_tensor(batch["wm_image"], device=dev).contiguous()
+            x = torch.cat([x, normalize_device(wm)])
+            y = torch.cat([y, torch.as_tensor(batch["wm_label"],
+                                              device=dev).long()])
+        return x, y
+
+    def step(state: TrainState, batch):
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step's")
+        model.train()
+        x, y = inputs(state, batch)
+        w = batch.get("weight")
+        if w is not None:
+            w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+
+        if fork is not None:
+            fork_name, _ = fork
+            torch._foreach_copy_(snapshot, prefix_bufs)
+            out0 = model(x, ind=0, tap_at=fork_name)
+            out1 = model(out0.tap, ind=1, start_at=fork_name)
+        elif private:
+            out0 = model(x, ind=0)
+            out1 = model(x, ind=1)
+        else:
+            out = model(x)
+            ce = cross_entropy_mean(out.logits, y, w)
+            sl, sacc = total_sign_loss(collect_aux(out.aux), dev)
+            metrics = {"acc": top1_accuracy(out.logits, y, w)}
+        if private:
+            ce = (cross_entropy_mean(out0.logits, y, w)
+                  + cross_entropy_mean(out1.logits, y, w))
+            sl, sacc = total_sign_loss(collect_aux(out1.aux), dev)
+            metrics = {"acc_public": top1_accuracy(out0.logits, y, w),
+                       "acc_private": top1_accuracy(out1.logits, y, w)}
+        (ce + sl).backward()
+        if fork is not None:
+            with torch.no_grad():
+                moved = torch._foreach_sub(prefix_bufs, snapshot)
+                torch._foreach_add_(prefix_bufs, moved, alpha=BN_MOMENTUM)
+        state.apply_gradients()
+        metrics.update({"loss": ce, "sign_loss": sl, "sign_acc": sacc})
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
 
 
 def _batch(batch, device):
@@ -50,7 +219,8 @@ def make_dual_eval_step(model, split_branches: bool = True,
 
     The shared prefix up to the first passport block runs once and the
     private branch forks from its output: at eval the branches are identical
-    up to that block (same weights, same BN running stats)."""
+    up to that block (same weights, same BN running stats). Runs in eval
+    mode whatever the model's mode."""
     dev = resolve_device(device)
     require_on_device(model, dev)
     fork = branch_point(model) if split_branches else None
@@ -58,14 +228,15 @@ def make_dual_eval_step(model, split_branches: bool = True,
     @torch.inference_mode()
     def step(batch):
         x, y = _batch(batch, dev)
-        if fork is not None:
-            name, _ = fork
-            out0 = model(x, ind=0, tap_at=name)
-            logits0 = out0.logits
-            logits1 = model(out0.tap, ind=1, start_at=name).logits
-        else:
-            logits0 = model(x, ind=0).logits
-            logits1 = model(x, ind=1).logits
+        with eval_mode(model):
+            if fork is not None:
+                name, _ = fork
+                out0 = model(x, ind=0, tap_at=name)
+                logits0 = out0.logits
+                logits1 = model(out0.tap, ind=1, start_at=name).logits
+            else:
+                logits0 = model(x, ind=0).logits
+                logits1 = model(x, ind=1).logits
         out = {}
         for tag, logits in (("public", logits0), ("private", logits1)):
             out[f"ce_sum_{tag}"], out[f"correct_{tag}"] = _sums(logits, y)
@@ -96,14 +267,16 @@ def run_dual_eval(step, dataset) -> Dict[str, float]:
 
 def make_eval_step(model, ind: int = 0, force_passport: bool = False,
                    device: DeviceLike = "cuda"):
-    """Sum-reduced CE + correct-count eval step (reference Tester.test)."""
+    """Sum-reduced CE + correct-count eval step (reference Tester.test), in
+    eval mode whatever the model's mode."""
     dev = resolve_device(device)
     require_on_device(model, dev)
 
     @torch.inference_mode()
     def step(batch):
         x, y = _batch(batch, dev)
-        logits = model(x, ind=ind, force_passport=force_passport).logits
+        with eval_mode(model):
+            logits = model(x, ind=ind, force_passport=force_passport).logits
         ce_sum, correct = _sums(logits, y)
         return {"ce_sum": ce_sum, "correct": correct}
 

@@ -1,1 +1,1 @@
-"""Host-side helpers: passport-config expansion and device selection."""
+"""Host-side helpers: passport-config expansion, device and mode selection."""

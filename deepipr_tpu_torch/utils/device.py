@@ -6,6 +6,7 @@ caller without a GPU gets an error unless it asks for ``device="cpu"``.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Union
 
 import torch
@@ -46,3 +47,14 @@ def nhwc_to_nchw(x, device: torch.device) -> torch.Tensor:
     if x.ndim != 4:
         raise ValueError(f"expected an NHWC batch, got shape {tuple(x.shape)}")
     return x.permute(0, 3, 1, 2).contiguous()
+
+
+def seeded_generator(device: torch.device, seed: int, *fold: int
+                     ) -> torch.Generator:
+    """A generator on ``device`` whose stream depends on ``seed`` and the
+    ``fold`` integers alone: the counterpart of ``jax.random.fold_in``
+    (the streams differ from JAX's)."""
+    digest = hashlib.blake2b(repr((seed, *fold)).encode(), digest_size=8)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int.from_bytes(digest.digest(), "little") >> 1)
+    return gen
