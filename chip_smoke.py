@@ -7,11 +7,14 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 
 1. Environment: the card, its power limit, the float32 settings.
 2. Build: every CUDA kernel of ``deepipr_tpu_torch/csrc`` with nvcc (sm_90a)
-   into ``build/deepipr_tpu_torch/``.
+   into ``build/deepipr_tpu_torch/``, with ptxas's registers, spills and
+   shared memory; each kernel's PTX read for 64-bit integer division (which
+   fails the run) and, where the toolkit has cuobjdump, its SASS size.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and the JAX package's test shapes, then timed
-   beside its plain version, a library yardstick where one exists and its
-   memory bound.
+   the main paths' shapes, the JAX package's test shapes and ragged ones
+   (its vector and scalar paths), K2 twice for bit-identical results; then
+   timed beside its plain version, a library yardstick where one exists,
+   its memory bound, the event timer's own floor and its CUPTI duration.
 4. Serving: ResNet18Private at CIFAR-10 width with
    passport_configs/resnet18_passport.json, random weights, passports and BN
    statistics from ``--seed``. The serving path runs through the public
@@ -40,6 +43,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,10 +58,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REQUEST_BATCH = 256
 MAIN_SHAPE = (REQUEST_BATCH, 512, 4, 4)  # every passport block of the path
-# tests/test_pallas.py's shapes in NCHW, and batch 1 (signature detection)
+# tests/test_pallas.py's shapes in NCHW, batch 1 (signature detection), and
+# ragged ones: H*W = 49 (ImageNet's layer4, the scalar path) and C not a
+# multiple of the channel tile
 CHECK_SHAPES = [MAIN_SHAPE, (1, 512, 4, 4), (1024, 512, 4, 4),
                 (4, 128, 8, 8), (2, 256, 16, 16), (2, 64, 56, 56),
-                (2, 128, 28, 28)]
+                (2, 128, 28, 28), (8, 512, 7, 7), (3, 40, 5, 3)]
 # the card against the plain version of the same arithmetic: the GAP sums
 # in another order (tests/test_pallas.py's tolerance)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -68,6 +75,17 @@ LOGITS_TOL = dict(rtol=1e-3, atol=2e-4)
 AUGMENT_TOL = dict(rtol=0.0, atol=3e-7)
 # the training slice (bench.py:47, 57-71): 50 steps per epoch
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_PAD, TRAIN_LR = 12800, 256, 4, 0.01
+# K1's cases: (label, set shape, batch, pad). The training batch first (the
+# one timed), batch 1 and 13, the tests' 16x16, and a 15x15x3 set whose
+# H*W*C (675) is not a multiple of 16 and whose W is not one of 4
+AUGMENT_SHAPES = [
+    ("B=256 32x32 pad 4", (TRAIN_IMAGES, 32, 32, 3), TRAIN_BATCH, 4),
+    ("B=1 32x32 pad 4", (TRAIN_IMAGES, 32, 32, 3), 1, 4),
+    ("B=13 32x32 pad 4", (TRAIN_IMAGES, 32, 32, 3), 13, 4),
+    ("B=16 16x16 pad 2", (64, 16, 16, 3), 16, 2),
+    ("B=1 15x15 pad 2", (64, 15, 15, 3), 1, 2),
+    ("B=13 15x15 pad 2", (64, 15, 15, 3), 13, 2),
+]
 TIMED_EPOCHS = 3
 # two train steps on the card against the same two on the CPU: metrics and
 # BN statistics elementwise; each parameter's update (after - before)
@@ -110,8 +128,44 @@ def build_kernels() -> None:
         f"into {cuda_build.BUILD_DIR}")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
                 log(f"  {name}: {line.strip()}")
+    for name in cuda_build.kernel_names():
+        read_code(name, cuda_build)
+
+
+def read_code(name: str, cuda_build) -> None:
+    """Fail if the kernel's PTX holds a 64-bit integer division or
+    remainder, which no kernel of the port should need; log its IEEE f32
+    divisions and, where the toolkit has cuobjdump, each compiled
+    function's SASS size and the subroutines it calls."""
+    ptx = cuda_build.ptx(name)
+    div64 = re.findall(r"\b(?:div|rem)\.[su]64\b", ptx)
+    fdiv = len(re.findall(r"\bdiv\.rn\.f32\b", ptx))
+    log(f"  {name}: PTX holds {len(div64)} 64-bit integer divisions or "
+        f"remainders, {fdiv} IEEE f32 divisions")
+    if div64:
+        raise AssertionError(f"{name}: 64-bit integer division in the PTX")
+    try:
+        tool = cuda_build.toolkit_program("cuobjdump")
+    except RuntimeError:
+        log(f"  {name}: cuobjdump not found, SASS not read")
+        return
+    lib = str(cuda_build.library_path(name))
+    usage = subprocess.run([tool, "-res-usage", lib], check=True,
+                           capture_output=True, text=True, timeout=120).stdout
+    for function, res in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)",
+                                    usage):
+        log(f"  {name}: {function[-50:]}: {res.strip()}")
+    sass = subprocess.run([tool, "-sass", lib], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    for function in sass.split("Function : ")[1:]:
+        title = function.splitlines()[0].strip()
+        count = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", function, re.M))
+        calls = len(set(re.findall(r"CALL\.\S+\s+(\S+)", function)))
+        log(f"  {name}: {title[-50:]}: {count} SASS instructions, "
+            f"{calls} subroutine(s) called")
 
 
 # --------------------------------------------------------------- timing
@@ -126,6 +180,7 @@ class DeviceTimer:
         self.iters = iters
         self.flush = torch.empty(64 * 2**20, dtype=torch.float32,
                                  device="cuda")  # 256 MB > the 50 MB L2
+        self.one = torch.empty(1, device="cuda")
 
     def ms(self, fn) -> float:
         for _ in range(3):
@@ -142,8 +197,53 @@ class DeviceTimer:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
+    def floor_ms(self) -> float:
+        """The timer's own floor: ``ms`` of a one-element ``zero_()``, the
+        card's launch-to-event overhead around the smallest kernel."""
+        return self.ms(self.one.zero_)
+
+    def profiled_ms(self, fn, kernel: str, clean: bool = False) -> float:
+        """Median CUPTI duration (torch.profiler) of the kernel whose name
+        holds ``kernel``, over ``iters`` calls of ``fn``, the L2 flushed
+        before each: the kernel alone, without the launch. The flush writes
+        (as for ``ms``), which leaves the L2 full of dirty lines that the
+        kernel's traffic must write back; ``clean`` flushes by reading."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(self.iters):
+                if clean:
+                    self.flush.sum()
+                else:
+                    self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(us) != self.iters:
+            raise AssertionError(f"the profiler saw {len(us)} launches of "
+                                 f"{kernel}, expected {self.iters}")
+        return statistics.median(us) / 1e3
+
 
 # -------------------------------------------------------------- kernels
+
+def memory_diagnostics(timer: DeviceTimer, fn, kernel: str, copy,
+                       copy_kernel: str, label: str, smi: str) -> None:
+    """Log what bounds a memory kernel in practice: its CUPTI duration
+    after a reading flush (clean L2), and the CUPTI duration of one
+    PyTorch elementwise kernel (``copy``, named ``copy_kernel``) that reads
+    and writes the same bytes, after either flush."""
+    diag = {"profiled_clean_ms": timer.profiled_ms(fn, kernel, clean=True),
+            "copy_profiled_ms": timer.profiled_ms(copy, copy_kernel),
+            "copy_profiled_clean_ms": timer.profiled_ms(copy, copy_kernel,
+                                                        clean=True)}
+    log(f"{label} memory diagnostics: {json.dumps(diag)} [{smi}]")
+
 
 def epilogue_inputs(shape, gen):
     n, c, h, w = shape
@@ -164,24 +264,42 @@ def check_epilogue(gen) -> float:
     )
 
     worst = 0.0
-    for shape in CHECK_SHAPES:
-        args = epilogue_inputs(shape, gen)
+    cases = [(shape, epilogue_inputs(shape, gen)) for shape in CHECK_SHAPES]
+    # y and key_out 4 bytes off 16-byte alignment: the scalar path at H*W=16
+    y, key_out, *rest = epilogue_inputs(MAIN_SHAPE, gen)
+    cases.append(("misaligned y and key_out", (misaligned(y),
+                                               misaligned(key_out), *rest)))
+    for label, args in cases:
         for relu in (True, False):
             got = passport_epilogue(*args, relu=relu)
+            again = passport_epilogue(*args, relu=relu)
             torch.cuda.synchronize()
             want = passport_epilogue_reference(*args, relu=relu)
-            for name, g, w in zip(("out", "scale", "bias"), got, want):
+            for name, g, a, w in zip(("out", "scale", "bias"), got, again,
+                                     want):
+                if not torch.equal(g, a):
+                    raise AssertionError(f"passport_epilogue {label}: two "
+                                         f"calls gave different {name}")
                 if name == "out":
                     torch.testing.assert_close(g, w, **KERNEL_TOL)
                 else:
                     torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
                 worst = max(worst, (g - w).abs().max().item())
-        log(f"passport_epilogue {shape}: agrees with the plain version "
-            f"(relu on and off)")
+        log(f"passport_epilogue {label}: agrees with the plain version "
+            f"(relu on and off), bit-identical over two calls")
     return worst
 
 
-def time_epilogue(gen, timer: DeviceTimer, shape) -> dict:
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def time_epilogue(gen, timer: DeviceTimer, shape, smi: str) -> dict:
     from deepipr_tpu_torch.ops.passport_epilogue import (
         passport_epilogue,
         passport_epilogue_reference,
@@ -200,8 +318,15 @@ def time_epilogue(gen, timer: DeviceTimer, shape) -> dict:
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / F32_FLOPS_PER_S * 1e3}
     bound_by = max(bound, key=bound.get)
+    copy = torch.empty_like(y)
+    memory_diagnostics(timer, lambda: passport_epilogue(*args),
+                       "passport_epilogue_kernel",
+                       lambda: torch.mul(y, 1.0, out=copy), "MulFunctor",
+                       f"passport_epilogue {shape}", smi)
     return {
         "ms": timer.ms(lambda: passport_epilogue(*args)),
+        "profiled_ms": timer.profiled_ms(lambda: passport_epilogue(*args),
+                                         "passport_epilogue_kernel"),
         "plain_ms": timer.ms(lambda: passport_epilogue_reference(*args)),
         "library_ms": timer.ms(library),
         "bound_ms": bound[bound_by],
@@ -210,31 +335,29 @@ def time_epilogue(gen, timer: DeviceTimer, shape) -> dict:
 
 
 def augment_cases(seed: int):
-    """K1's inputs on the card: (label, set, idx, (oy, ox, flip), pad). The
-    training batch from the 12,800-image set, batch 1 and 13, the tests'
-    16x16 shape, and every extreme draw (offsets 0 and 2*pad, flip on and
-    off)."""
+    """K1's inputs on the card: (label, set, idx, (oy, ox, flip), pad), one
+    per AUGMENT_SHAPES entry, then every extreme draw (offsets 0 and 2*pad,
+    flip on and off) from the 12,800-image set."""
     from deepipr_tpu_torch.data.device_augment import draw_augment
 
     rng = np.random.default_rng(seed)
-    big = torch.from_numpy(rng.integers(
-        0, 256, (TRAIN_IMAGES, 32, 32, 3), dtype=np.uint8)).cuda()
-    small = torch.from_numpy(rng.integers(
-        0, 256, (64, 16, 16, 3), dtype=np.uint8)).cuda()
+    sets = {}
+    for _, shape, _, _ in AUGMENT_SHAPES:
+        if shape not in sets:
+            sets[shape] = torch.from_numpy(rng.integers(
+                0, 256, shape, dtype=np.uint8)).cuda()
     gen = torch.Generator().manual_seed(seed)
     cases = []
-    for label, ds, b, pad in (("B=256 32x32 pad 4", big, TRAIN_BATCH, 4),
-                              ("B=1 32x32 pad 4", big, 1, 4),
-                              ("B=13 32x32 pad 4", big, 13, 4),
-                              ("B=16 16x16 pad 2", small, 16, 2)):
-        idx = torch.randperm(ds.shape[0], generator=gen)[:b].int()
+    for label, shape, b, pad in AUGMENT_SHAPES:
+        idx = torch.randperm(shape[0], generator=gen)[:b].int()
         draws = draw_augment(gen, b, pad)
-        cases.append((label, ds, idx.cuda(), tuple(t.cuda() for t in draws),
-                      pad))
+        cases.append((label, sets[shape], idx.cuda(),
+                      tuple(t.cuda() for t in draws), pad))
     extremes = torch.tensor([(oy, ox, f) for oy in (0, 8) for ox in (0, 8)
                              for f in (0, 1)] * 2, dtype=torch.int32)
     idx = torch.randperm(TRAIN_IMAGES, generator=gen)[:len(extremes)].int()
-    cases.append(("extreme draws 32x32 pad 4", big, idx.cuda(),
+    cases.append(("extreme draws 32x32 pad 4", sets[AUGMENT_SHAPES[0][1]],
+                  idx.cuda(),
                   tuple(extremes[:, i].contiguous().cuda() for i in range(3)),
                   4))
     return cases
@@ -274,7 +397,7 @@ def check_augment(cases) -> float:
     return worst
 
 
-def time_augment(timer: DeviceTimer, case) -> dict:
+def time_augment(timer: DeviceTimer, case, smi: str) -> dict:
     from deepipr_tpu_torch.data.device_augment import (
         augment_reference,
         scaled_stats,
@@ -292,9 +415,18 @@ def time_augment(timer: DeviceTimer, case) -> dict:
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / F32_FLOPS_PER_S * 1e3}
     bound_by = max(bound, key=bound.get)
+
+    def kernel():
+        fused_augment(ds, idx, *draws, mean255, std255, pad)
+
+    rows, batch = ds[:b], torch.empty((b, h, w, c), device="cuda")
+    memory_diagnostics(timer, kernel, "fused_augment_kernel",
+                       lambda: batch.copy_(rows), "direct_copy",
+                       f"fused_augment {case[0]}", smi)
+
     return {
-        "ms": timer.ms(lambda: fused_augment(ds, idx, *draws, mean255,
-                                             std255, pad)),
+        "ms": timer.ms(kernel),
+        "profiled_ms": timer.profiled_ms(kernel, "fused_augment_kernel"),
         "plain_ms": timer.ms(lambda: augment_reference(
             ds[idx.long()], *draws, pad, mean255, std255)),
         "library_ms": None,  # no single PyTorch call gathers, crops and flips
@@ -482,8 +614,11 @@ def where_time_goes(gpu_model, smi: str, reps: int = 5) -> None:
         pred = Predictor(gpu_model, ind=ind)
         for _ in range(3):
             pred.logits(x)
-        profiled(lambda: pred.logits(x), reps,
-                 f"ind={ind} forward, batch {REQUEST_BATCH}", smi)
+        us = profiled(lambda: pred.logits(x), reps,
+                      f"ind={ind} forward, batch {REQUEST_BATCH}", smi)
+    k2 = sum(t for name, t in us.items() if "passport_epilogue" in name)
+    log(f"  K2 passport_epilogue: {k2:.1f} us per private forward (5 "
+        f"launches), {100 * k2 / sum(us.values()):.2f} % of its device time")
 
 
 # ------------------------------------------------------------- training
@@ -693,11 +828,14 @@ def main() -> int:
     cases = augment_cases(args.seed)
     max_err["fused_augment"] = check_augment(cases)
     timer = DeviceTimer()
+    floor_ms = timer.floor_ms()
+    log(f"event timer floor (one-element zero_, L2 flushed): {floor_ms} ms "
+        f"[{smi}]")
     timing = {}
     for shape in (MAIN_SHAPE, (1024, 512, 4, 4)):
-        timing[shape] = time_epilogue(gen, timer, shape)
+        timing[shape] = time_epilogue(gen, timer, shape, smi)
         log(f"passport_epilogue {shape}: {json.dumps(timing[shape])} [{smi}]")
-    timing["fused_augment"] = time_augment(timer, cases[0])
+    timing["fused_augment"] = time_augment(timer, cases[0], smi)
     log(f"fused_augment {cases[0][0]}: {json.dumps(timing['fused_augment'])} "
         f"[{smi}]")
     del cases, timer
@@ -749,6 +887,7 @@ def main() -> int:
         "replaces": sources[name],
         "launches": path_launches[name],
         "max_abs_err": max_err[name],
+        "floor_ms": floor_ms,
         **timing[MAIN_SHAPE if name == "passport_epilogue" else name],
     } for name in ("passport_epilogue", "fused_augment")]
     print(json.dumps({"kernels": kernels}))

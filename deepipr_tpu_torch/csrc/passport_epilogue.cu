@@ -13,85 +13,232 @@
 // Bound: memory. Each output element costs one read of y and one write of
 // out and about five flops, so the pass moves 2*N*C*H*W*4 bytes plus
 // 2*C*H*W*4 for the passport rows; at the main path's (256, 512, 4, 4) that
-// is about 17 MB, some 5 us at 3.35 TB/s.
+// is about 17 MB, some 5 us at 3.35 TB/s. Reaching it takes enough loads in
+// flight (Little's law: about 2 MB at HBM3's latency), so the design is about
+// memory-level parallelism and wide accesses.
 //
-// Design (first, simple version): one block per channel. The block reduces
-// the two H*W passport planes of its channel in registers and shared memory,
-// in a fixed-order tree (no atomics, so scale/bias are deterministic), then
-// streams that channel's N planes of y. In NCHW a plane is contiguous, so
-// neighbouring threads touch neighbouring addresses. At H*W = 16 one warp
-// covers two planes per step; the per-channel blocks give 512 blocks at
-// C = 512, enough to cover the 132 SMs.
+// Design: y is walked in its memory order. A block owns a tile of tile_c
+// channels and a range of tile_rows batch rows; for each row n its span
+// y[n, c0:c0+tile_c] is tile_c*H*W contiguous floats (2 KB at H*W = 16).
+//   - A thread owns a fixed position in the span (a float4 when H*W % 4 == 0
+//     and y and out are 16-byte aligned, else one float), so its channel is
+//     the same in every row: one 32-bit division per position, and its
+//     (scale, bias, mean, inv) stay in registers for the whole row loop.
+//   - It issues the loads of kUnroll rows before it uses the first, and the
+//     first of those during the passport reduction, so the prologue overlaps
+//     memory. The passport loads go first: queued behind 8 MB of y, the
+//     coefficients that every store waits for would come last.
+//   - GAP: the block stages the tile's key and skey planes in shared memory
+//     (coalesced loads, at most kStage a thread per stage; after the first
+//     block they come from L2). A group of G lanes sums each channel, every
+//     channel of the tile at once where the block has G lanes for each: lane
+//     g adds positions g, g+G, ... in order, then a shuffle tree over the
+//     group. G is a power of two taken from the staged length alone (4 at
+//     H*W = 16), so every block derives bit-identical coefficients for a
+//     channel, and only the blocks of row range 0 write scale/bias. No
+//     atomics: signature detection needs sign-for-sign determinism.
+// The launch geometry (tile_c, tile_rows, threads, staging length, vector or
+// scalar path) is chosen by ops/passport_epilogue.py::epilogue_geometry and
+// checked here again.
 //
 // Plain C interface for ctypes; the caller allocates every output and passes
 // PyTorch's current stream. Returns cudaGetLastError() after the launch.
+
+#include <climits>
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSmem = 48 * 1024;
+constexpr int kUnroll = 8;  // rows of y in flight per thread
+constexpr int kStage = 4;  // passport elements per thread and plane a stage
 
-// Sum of one value per thread, in a fixed order.
-__device__ float block_sum(float v, float* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float total = red[0];
-  __syncthreads();  // red is reused by the next call
-  return total;
+// Shared floats: the tile's four coefficient rows, then the staged key and
+// skey planes of tile_c channels x gap_len positions each.
+inline long long smem_floats(int tile_c, int gap_len) {
+  return 4LL * tile_c + 2LL * tile_c * gap_len;
 }
 
-__global__ void __launch_bounds__(kThreads) passport_epilogue_kernel(
+__device__ inline float epilogue(float x, float s, float b, float m, float inv,
+                                 int relu) {
+  float v = s * ((x - m) * inv) + b;
+  if (relu && v < 0.f) v = 0.f;  // NaN passes through, as in jnp.maximum
+  return v;
+}
+
+__device__ inline float4 epilogue(float4 x, float s, float b, float m,
+                                  float inv, int relu) {
+  return make_float4(epilogue(x.x, s, b, m, inv, relu),
+                     epilogue(x.y, s, b, m, inv, relu),
+                     epilogue(x.z, s, b, m, inv, relu),
+                     epilogue(x.w, s, b, m, inv, relu));
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxThreads) passport_epilogue_kernel(
     const float* __restrict__ y, const float* __restrict__ key_out,
     const float* __restrict__ skey_out, const float* __restrict__ mean,
     const float* __restrict__ var, float* __restrict__ out,
     float* __restrict__ scale, float* __restrict__ bias, int n, int c, int hw,
-    float eps, int relu) {
-  __shared__ float red[kThreads];
-  const int ch = blockIdx.x;
+    int tile_c, int tile_rows, int gap_len, float eps, int relu) {
+  using V = std::conditional_t<kVec, float4, float>;
+  constexpr int kVw = kVec ? 4 : 1;
+  extern __shared__ __align__(16) float smem[];
+  float* s_scale = smem;  // the skey sums, then scale
+  float* s_bias = s_scale + tile_c;  // the key sums, then bias
+  float* s_mean = s_bias + tile_c;
+  float* s_inv = s_mean + tile_c;
+  float* s_key = s_inv + tile_c;
+  float* s_skey = s_key + tile_c * gap_len;
 
-  const float* kplane = key_out + static_cast<size_t>(ch) * hw;
-  const float* splane = skey_out + static_cast<size_t>(ch) * hw;
-  float ks = 0.f, ss = 0.f;
-  for (int p = threadIdx.x; p < hw; p += kThreads) {
-    ks += kplane[p];
-    ss += splane[p];
-  }
-  const float s = block_sum(ss, red) / static_cast<float>(hw);
-  const float b = block_sum(ks, red) / static_cast<float>(hw);
-  if (threadIdx.x == 0) {
-    scale[ch] = s;
-    bias[ch] = b;
+  const int c0 = blockIdx.y * tile_c;
+  const int tc = min(tile_c, c - c0);
+  const int n0 = blockIdx.x * tile_rows;
+  const int rows = min(tile_rows, n - n0);
+  const int positions = tc * hw / kVw;
+  const size_t row_v = static_cast<size_t>(c) * hw / kVw;  // V per batch row
+  const size_t base = (static_cast<size_t>(n0) * c + c0) * hw / kVw;
+  const V* yv = reinterpret_cast<const V*>(y) + base;
+  V* ov = reinterpret_cast<V*>(out) + base;
+
+  // GAP of the tile's passport planes, gap_len positions of each channel at
+  // a time (gap_len == hw unless the tile is one large channel); either way
+  // the staged piece is contiguous in key_out and skey_out, and at most
+  // kStage * blockDim.x floats long
+  V buf[kUnroll];
+  int shift = 0;  // log2 of the lanes that sum one channel, at most 32
+  while (shift < 5 && (kStage << shift) < gap_len) ++shift;
+  const int group = 1 << shift;
+  const int lane = threadIdx.x & (group - 1);
+  const int groups = blockDim.x >> shift;  // channels reduced at once
+  for (int off = 0; off < hw; off += gap_len) {
+    const int len = min(gap_len, hw - off);
+    const size_t src = static_cast<size_t>(c0) * hw + off;
+    float kr[kStage], sr[kStage];
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < tc * len) {
+        kr[k] = __ldg(key_out + src + i);
+        sr[k] = __ldg(skey_out + src + i);
+      }
+    }
+    if (off == 0) {
+      // the first kUnroll rows of this thread's first position, and the
+      // tile's BN statistics, in flight during the reduction
+      if (threadIdx.x < positions) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (u < rows) buf[u] = __ldg(yv + u * row_v + threadIdx.x);
+      }
+      for (int i = threadIdx.x; i < tc; i += blockDim.x) {
+        s_mean[i] = __ldg(mean + c0 + i);
+        s_inv[i] = rsqrtf(__ldg(var + c0 + i) + eps);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < tc * len) {
+        s_key[i] = kr[k];
+        s_skey[i] = sr[k];
+      }
+    }
+    __syncthreads();
+    // lane g of a group sums positions g, g+G, ... of its channel in
+    // order, then a shuffle tree over the group's G lanes
+    for (int first = 0; first < tc; first += groups) {
+      const int ch = first + static_cast<int>(threadIdx.x >> shift);
+      float ks = 0.f, ss = 0.f;
+      if (ch < tc) {
+        for (int j = lane; j < len; j += group) {
+          ks += s_key[ch * len + j];
+          ss += s_skey[ch * len + j];
+        }
+      }
+      for (int o = group / 2; o > 0; o >>= 1) {
+        ks += __shfl_down_sync(0xffffffffu, ks, o, group);
+        ss += __shfl_down_sync(0xffffffffu, ss, o, group);
+      }
+      if (ch < tc && lane == 0) {
+        if (off > 0) {
+          ks += s_bias[ch];
+          ss += s_scale[ch];
+        }
+        const bool last = off + len >= hw;
+        s_bias[ch] = last ? ks / static_cast<float>(hw) : ks;
+        s_scale[ch] = last ? ss / static_cast<float>(hw) : ss;
+        if (last && blockIdx.x == 0) {
+          scale[c0 + ch] = s_scale[ch];
+          bias[c0 + ch] = s_bias[ch];
+        }
+      }
+    }
+    __syncthreads();
   }
 
-  const float m = mean[ch];
-  const float inv = rsqrtf(var[ch] + eps);
-  const size_t total = static_cast<size_t>(n) * hw;
-  for (size_t j = threadIdx.x; j < total; j += kThreads) {
-    const size_t row = j / hw;
-    const size_t i = (row * c + ch) * hw + (j - row * hw);
-    float v = s * ((y[i] - m) * inv) + b;
-    if (relu && v < 0.f) v = 0.f;  // NaN passes through, as in jnp.maximum
-    out[i] = v;
+  for (int p = threadIdx.x; p < positions; p += blockDim.x) {
+    const int ch = p * kVw / hw;
+    const float s = s_scale[ch], b = s_bias[ch];
+    const float m = s_mean[ch], inv = s_inv[ch];
+    for (int r = 0; r < rows; r += kUnroll) {
+      if (p != threadIdx.x || r > 0) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (r + u < rows) buf[u] = __ldg(yv + (r + u) * row_v + p);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (r + u < rows)
+          ov[(r + u) * row_v + p] = epilogue(buf[u], s, b, m, inv, relu);
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int passport_epilogue_f32(const float* y, const float* key_out,
-                                     const float* skey_out, const float* mean,
-                                     const float* var, float* out,
-                                     float* scale, float* bias, int n, int c,
-                                     int hw, float eps, int relu, int device,
-                                     void* stream) {
-  if (n <= 0 || c <= 0 || hw <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// tile_c, tile_rows, threads, gap_len, smem_bytes and vector come from
+// ops/passport_epilogue.py::epilogue_geometry; a geometry the kernel cannot
+// run is refused with cudaErrorInvalidValue.
+extern "C" int passport_epilogue_f32(
+    const float* y, const float* key_out, const float* skey_out,
+    const float* mean, const float* var, float* out, float* scale, float* bias,
+    int n, int c, int hw, int tile_c, int tile_rows, int threads, int gap_len,
+    int smem_bytes, int vector, float eps, int relu, int device,
+    void* stream) {
+  const bool bad_shape = n <= 0 || c <= 0 || hw <= 0 || tile_c <= 0 ||
+                         tile_c > c || tile_rows <= 0 || gap_len <= 0 ||
+                         gap_len > hw || (tile_c > 1 && gap_len != hw) ||
+                         static_cast<long long>(tile_c) * gap_len >
+                             static_cast<long long>(kStage) * threads;
+  const bool bad_block = threads < 32 || threads > kMaxThreads ||
+                         threads % 32 != 0;
+  const bool bad_smem =
+      smem_bytes > kMaxSmem ||
+      smem_bytes < 4 * smem_floats(tile_c, gap_len);
+  const bool bad_vector =
+      vector && (hw % 4 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(out) % 16 != 0);
+  const long long c_tiles = (static_cast<long long>(c) + tile_c - 1) / tile_c;
+  if (bad_shape || bad_block || bad_smem || bad_vector || c_tiles > 65535 ||
+      static_cast<long long>(tile_c) * hw > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  passport_epilogue_kernel<<<c, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      y, key_out, skey_out, mean, var, out, scale, bias, n, c, hw, eps, relu);
+  const dim3 grid((n + tile_rows - 1) / tile_rows, c_tiles);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vector) {
+    passport_epilogue_kernel<true><<<grid, threads, smem_bytes, s>>>(
+        y, key_out, skey_out, mean, var, out, scale, bias, n, c, hw, tile_c,
+        tile_rows, gap_len, eps, relu);
+  } else {
+    passport_epilogue_kernel<false><<<grid, threads, smem_bytes, s>>>(
+        y, key_out, skey_out, mean, var, out, scale, bias, n, c, hw, tile_c,
+        tile_rows, gap_len, eps, relu);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,14 +31,16 @@ def kernel_names() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def toolkit_program(program: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH, or
+    under CUDA_HOME (default /usr/local/cuda). Raises if neither has it."""
+    found = shutil.which(program)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
+    path = os.path.join(home, "bin", program)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+        raise RuntimeError(f"{program} not found on PATH or under CUDA_HOME")
     return path
 
 
@@ -57,7 +59,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = toolkit_program("nvcc")
     procs = {}
     try:
         for name in names:
@@ -82,6 +84,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def ptx(name: str) -> str:
+    """The PTX that nvcc makes of ``csrc/<name>.cu`` for sm_90a at the
+    build's optimisation level: what ptxas compiles into the library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}.ptx"
+    subprocess.run([toolkit_program("nvcc"), "-arch=sm_90a", "-std=c++17",
+                    "-O3", "-ptx", "-o", str(out), str(CSRC / f"{name}.cu")],
+                   check=True, capture_output=True, text=True, timeout=600)
+    return out.read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,20 +5,67 @@ batch of rows from the uint8 set resident on the card, zero-pads, crops at
 the drawn offsets, flips, normalizes and writes the NCHW f32 batch the model
 consumes (csrc/fused_augment.cu). For CPU tensors the call takes the plain
 version, ``data/device_augment.py::augment_reference`` on the gathered rows.
-There is no switch: on the GPU the kernel runs or the call raises.
+CUDA tensors launch the kernel with the geometry ``augment_geometry``
+chooses. There is no switch: on the GPU the kernel runs or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from deepipr_tpu_torch.data.device_augment import augment_reference
 from deepipr_tpu_torch.ops import cuda_build
 
-# 8 pointers; n_set, b, h, w, c, pad, device; the stream
-_C_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# 8 pointers; n_set, b, h, w, c, pad; tile_rows, threads, smem_bytes,
+# vector_load, vector_store; device; the stream
+_C_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+MAX_THREADS = 256  # kMaxThreads of csrc/fused_augment.cu
+MAX_SMEM = 48 * 1024  # static shared-memory limit of a block, no opt-in
+
+
+class AugmentGeometry(NamedTuple):
+    """One launch of csrc/fused_augment.cu: block (b, t) writes output rows
+    [t * tile_rows, (t + 1) * tile_rows) of image b."""
+    grid: Tuple[int, int]  # (B, row tiles)
+    threads: int
+    tile_rows: int
+    smem_bytes: int  # the (C,) statistics, then tile_rows source rows
+    vector_load: bool  # 16-byte copies of the source rows
+    vector_store: bool  # float4 stores of 4 consecutive x
+
+
+def augment_geometry(b: int, h: int, w: int, c: int, set_ptr: int,
+                     out_ptr: int) -> AugmentGeometry:
+    """The launch geometry of kernel K1 for a (B, C, H, W) output gathered
+    from an (N, H, W, C) uint8 set at address ``set_ptr`` into ``out_ptr``.
+
+    A tile is the whole image while its H*W*C bytes fit MAX_SMEM beside the
+    statistics (32x32x3 is 3,072), else as many even tiles of rows as it
+    takes. Source rows are
+    copied 16 bytes at a time when a row (W*C bytes) is a multiple of 16 and
+    the set is 16-byte aligned; the output is stored as float4 when W is a
+    multiple of 4 and the output is 16-byte aligned.
+    """
+    row_bytes = w * c
+    stats = -(-8 * c // 16) * 16
+    max_rows = (MAX_SMEM - stats) // row_bytes
+    if max_rows < 1:
+        raise ValueError(f"fused_augment: a source row of {row_bytes} bytes "
+                         "and the statistics do not fit shared memory")
+    tiles = -(-h // min(h, max_rows))
+    tile_rows = -(-h // tiles)
+    vector_store = w % 4 == 0 and out_ptr % 16 == 0
+    pieces = tile_rows * (w // 4 if vector_store else w)
+    threads = min(MAX_THREADS, -(-pieces // 32) * 32)
+    return AugmentGeometry(
+        grid=(b, -(-h // tile_rows)), threads=threads, tile_rows=tile_rows,
+        smem_bytes=stats + tile_rows * row_bytes,
+        vector_load=row_bytes % 16 == 0 and set_ptr % 16 == 0,
+        vector_store=vector_store)
 
 
 def _check(images_u8, idx, oy, ox, flip, mean255, std255, pad) -> None:
@@ -79,10 +126,13 @@ def fused_augment(images_u8: torch.Tensor, idx: torch.Tensor,
     if index is None:
         index = torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
+    geo = augment_geometry(b, h, w, c, images_u8.data_ptr(), out.data_ptr())
     err = _kernel()(
         images_u8.data_ptr(), idx.data_ptr(), oy.data_ptr(), ox.data_ptr(),
         flip.data_ptr(), mean255.data_ptr(), std255.data_ptr(),
-        out.data_ptr(), n_set, b, h, w, c, int(pad), index, stream,
+        out.data_ptr(), n_set, b, h, w, c, int(pad), geo.tile_rows,
+        geo.threads, geo.smem_bytes, int(geo.vector_load),
+        int(geo.vector_store), index, stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_augment kernel launch failed: CUDA error {err}")

@@ -8,23 +8,72 @@ the rest of a BN passport block's eval path is
     out   = [relu](scale * ((y - mean) * rsqrt(var + eps)) + bias)
 
 ``passport_epilogue`` runs it as one kernel (csrc/passport_epilogue.cu) for
-CUDA tensors and as ``passport_epilogue_reference`` for CPU tensors. There is
-no switch: on the GPU the kernel runs or the call raises.
+CUDA tensors, launched with the geometry ``epilogue_geometry`` chooses, and
+as ``passport_epilogue_reference`` for CPU tensors. There is no switch: on
+the GPU the kernel runs or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from deepipr_tpu_torch.ops import cuda_build
 
-_C_ARGTYPES = [ctypes.c_void_p] * 8 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
+# 8 pointers; n, c, hw; tile_c, tile_rows, threads, gap_len, smem_bytes,
+# vector; eps; relu, device; the stream
+_C_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+
+SPAN_FLOATS = 512  # one row's span of a block: 2 KB of y
+STAGE = 4  # kStage of csrc/passport_epilogue.cu: passport floats a thread
+MAX_THREADS = 512  # kMaxThreads of csrc/passport_epilogue.cu
+TARGET_BLOCKS = 512  # about four blocks per SM of an H100
+MAX_SMEM = 48 * 1024  # static shared-memory limit of a block, no opt-in
+
+
+class EpilogueGeometry(NamedTuple):
+    """One launch of csrc/passport_epilogue.cu: block (r, t) covers batch
+    rows [r * tile_rows, (r + 1) * tile_rows) of channels
+    [t * tile_c, (t + 1) * tile_c)."""
+    grid: Tuple[int, int]  # (row blocks, channel tiles)
+    threads: int
+    tile_c: int
+    tile_rows: int
+    gap_len: int  # positions of each channel's passport planes per stage
+    smem_bytes: int
+    vector: bool  # float4 loads and stores of y and out
+
+
+def epilogue_geometry(n: int, c: int, hw: int, y_ptr: int,
+                      out_ptr: int) -> EpilogueGeometry:
+    """The launch geometry of kernel K2 for an (N, C, H*W) ``y`` at address
+    ``y_ptr`` and ``out`` at ``out_ptr``.
+
+    A channel tile spans SPAN_FLOATS of a row (32 channels at H*W = 16), one
+    thread per float4 of it (per float when H*W % 4 != 0 or a pointer is not
+    16-byte aligned). Rows per block: enough that the grid has about
+    TARGET_BLOCKS blocks (8 at the main shape, all in flight at once). The
+    passport planes are staged whole, unless the tile is one channel of
+    more than STAGE floats a thread; then STAGE * threads of it at a time.
+    """
+    vector = hw % 4 == 0 and y_ptr % 16 == 0 and out_ptr % 16 == 0
+    tile_c = min(c, max(1, SPAN_FLOATS // hw))
+    positions = tile_c * hw // (4 if vector else 1)
+    threads = min(MAX_THREADS, -(-positions // 32) * 32)
+    c_tiles = -(-c // tile_c)
+    if c_tiles > 65535:
+        raise ValueError(f"passport_epilogue: {c} channels of {hw} positions "
+                         "need more than 65535 channel tiles")
+    tile_rows = min(n, -(-n * c_tiles // TARGET_BLOCKS))
+    gap_len = hw if tile_c * hw <= STAGE * threads else STAGE * threads
+    return EpilogueGeometry(
+        grid=(-(-n // tile_rows), c_tiles), threads=threads, tile_c=tile_c,
+        tile_rows=tile_rows, gap_len=gap_len,
+        smem_bytes=4 * (4 * tile_c + 2 * tile_c * gap_len), vector=vector)
 
 
 def passport_epilogue_reference(
@@ -100,11 +149,13 @@ def passport_epilogue(
     if index is None:
         index = torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
+    geo = epilogue_geometry(n, c, h * w, y.data_ptr(), out.data_ptr())
     err = _kernel()(
         y.data_ptr(), key_out.data_ptr(), skey_out.data_ptr(),
         mean.data_ptr(), var.data_ptr(), out.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), n, c, h * w, float(eps), int(bool(relu)), index,
-        stream,
+        bias.data_ptr(), n, c, h * w, geo.tile_c, geo.tile_rows, geo.threads,
+        geo.gap_len, geo.smem_bytes, int(geo.vector), float(eps),
+        int(bool(relu)), index, stream,
     )
     if err != 0:
         raise RuntimeError(f"passport_epilogue kernel launch failed: CUDA error {err}")

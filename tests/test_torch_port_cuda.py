@@ -22,8 +22,9 @@ from deepipr_tpu_torch.data.device_augment import (
     scaled_stats,
 )
 from deepipr_tpu_torch.models.registry import build_model
-from deepipr_tpu_torch.ops.fused_augment import fused_augment
+from deepipr_tpu_torch.ops.fused_augment import augment_geometry, fused_augment
 from deepipr_tpu_torch.ops.passport_epilogue import (
+    epilogue_geometry,
     passport_epilogue,
     passport_epilogue_reference,
 )
@@ -71,6 +72,67 @@ def test_epilogue_kernel_matches_plain_version(cuda, shape, relu):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-6)
 
 
+def _epilogue_args(shape, device, seed=0):
+    n, c, h, w = shape
+    g = torch.Generator().manual_seed(seed)
+    args = [torch.randn(shape, generator=g),
+            torch.randn((1, c, h, w), generator=g),
+            torch.randn((1, c, h, w), generator=g),
+            torch.randn(c, generator=g),
+            0.5 + 1.5 * torch.rand(c, generator=g)]
+    return [a.to(device) for a in args]
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: a row of a larger tensor at an odd offset."""
+    flat = torch.zeros((2, t.numel() + 1), dtype=t.dtype, device=t.device)
+    view = flat[1, 1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# ragged cases of the redesigned kernel: H*W = 49 (the scalar path), C not a
+# multiple of the channel tile, batch 1; a key_out off 16-byte alignment, and
+# y off it (the scalar path at H*W = 16)
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hw49", "ragged_tile", "batch1",
+                                  "misaligned_key", "misaligned_y"])
+def test_epilogue_kernel_ragged_and_misaligned(cuda, case):
+    shape = {"hw49": (8, 512, 7, 7), "ragged_tile": (3, 40, 5, 3),
+             "batch1": (1, 512, 4, 4)}.get(case, (16, 512, 4, 4))
+    args = _epilogue_args(shape, cuda, seed=1)
+    if case == "misaligned_key":
+        args[1] = _misaligned(args[1])
+    elif case == "misaligned_y":
+        args[0] = _misaligned(args[0])
+    n, c, h, w = shape
+    geo = epilogue_geometry(n, c, h * w, args[0].data_ptr(), 0)
+    assert geo.vector == (case not in ("hw49", "ragged_tile",
+                                       "misaligned_y"))
+    for relu in (True, False):
+        got = passport_epilogue(*args, relu=relu)
+        torch.cuda.synchronize()
+        want = passport_epilogue_reference(*args, relu=relu)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        for g_, w_ in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g_, w_, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512, 4, 4), (8, 512, 7, 7)])
+def test_epilogue_kernel_is_deterministic(cuda, shape):
+    """Every block derives a channel's coefficients in one fixed order and
+    no atomics are used: two calls agree bit for bit."""
+    args = _epilogue_args(shape, cuda, seed=2)
+    first = passport_epilogue(*args)
+    second = passport_epilogue(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_epilogue_rejects_mixed_devices(cuda):
     y = torch.zeros((2, 8, 4, 4), device=cuda)
@@ -89,6 +151,8 @@ def sets():
     return {32: torch.from_numpy(rng.integers(0, 256, (12800, 32, 32, 3),
                                               dtype=np.uint8)),
             16: torch.from_numpy(rng.integers(0, 256, (64, 16, 16, 3),
+                                              dtype=np.uint8)),
+            15: torch.from_numpy(rng.integers(0, 256, (64, 15, 15, 3),
                                               dtype=np.uint8))}
 
 
@@ -101,10 +165,13 @@ def _extremes(pad):
 
 
 # (set side, batch, pad, extreme draws): the training batch, batch 1 and
-# 13, and the tests' 16x16 shape
+# 13, the tests' 16x16 shape, and a 15x15x3 set (H*W*C = 675 not a multiple
+# of 16, W not one of 4: byte copies and scalar stores)
 AUGMENT_CASES = {"B256": (32, 256, 4, False), "B1": (32, 1, 4, False),
                  "B13": (32, 13, 4, False), "B16_16x16": (16, 16, 2, False),
-                 "extremes": (32, 16, 4, True)}
+                 "extremes": (32, 16, 4, True),
+                 "B1_15x15": (15, 1, 2, False), "B13_15x15": (15, 13, 2, False),
+                 "extremes_15x15": (15, 16, 2, True)}
 
 
 @pytest.mark.cuda
@@ -129,6 +196,25 @@ def test_augment_kernel_matches_plain_version(cuda, sets, case):
             assert torch.equal(got, want)
         else:  # tests/test_pallas_augment.py's tolerance
             torch.testing.assert_close(got, want, rtol=0, atol=3e-7)
+
+
+@pytest.mark.cuda
+def test_augment_kernel_misaligned_set(cuda, sets):
+    """A set that starts one byte past a 16-byte boundary takes the byte
+    copies, and its pixels still agree bit for bit."""
+    ds = sets[32][:64]
+    flat = torch.zeros(ds.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(ds.shape)
+    shifted.copy_(ds.to(cuda))
+    _, h, w, c = ds.shape
+    assert not augment_geometry(13, h, w, c, shifted.data_ptr(), 0).vector_load
+    gen = torch.Generator().manual_seed(3)
+    idx = torch.randperm(64, generator=gen)[:13].int().to(cuda)
+    draws = tuple(t.to(cuda) for t in draw_augment(gen, 13, 4))
+    stats = (torch.zeros(3, device=cuda), torch.ones(3, device=cuda))
+    got = fused_augment(shifted, idx, *draws, *stats, 4)
+    want = augment_reference(shifted[idx.long()], *draws, 4, *stats)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
