@@ -10,12 +10,13 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    into ``build/deepipr_tpu_torch/``, with ptxas's registers, spills and
    shared memory; each kernel's PTX read for 64-bit integer division (which
    fails the run) and, where the toolkit has cuobjdump, its SASS size.
-3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes, the JAX package's test shapes and ragged ones
-   (its vector and scalar paths), K2 twice for bit-identical results; then
-   timed beside its plain version, a library yardstick where one exists,
-   its memory bound, the event timer's own floor and its CUPTI duration.
-4. Serving: ResNet18Private at CIFAR-10 width with
+3. Kernels: each kernel's f32 and bf16 forms against their plain PyTorch
+   versions on the card, at the main paths' shapes, the JAX package's test
+   shapes and ragged ones (its vector and scalar paths), K2 twice for
+   bit-identical results; then timed beside the plain version, a library
+   yardstick where one exists, the memory bound, the event timer's own
+   floor and the CUPTI duration.
+4. Serving, in f32 and then in bf16: ResNet18Private at CIFAR-10 width with
    passport_configs/resnet18_passport.json, random weights, passports and BN
    statistics from ``--seed``. The serving path runs through the public
    entry points (Predictor for both branches, the both-branch eval step,
@@ -25,13 +26,20 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 5. Throughput: Predictor images/s for both branches at batch 256 and 1024,
    the verification latency, and each branch's device time by kernel
    from torch.profiler (printed, not asserted).
-6. Training (bench.py's path): V2 ResNet18Private from ``--seed``, SGD
-   (lr 0.01, momentum 0.9, decay 1e-4), batch 256, pad 4, one warm-up and
-   three timed device-resident epochs over 12,800 synthetic uint8 images,
-   with the launch counts set to 0 just before and read just after (K1 once
-   per step, K2 never); the loss and sign loss must fall. Then two steps
-   on the card against the same two steps on the CPU, the trained model
-   through the serving entry points, and one profiled train step.
+6. Training (bench.py's path), in f32 and then in bf16 (bench.py's
+   precision): V2 ResNet18Private from ``--seed``, SGD (lr 0.01, momentum
+   0.9, decay 1e-4), batch 256, pad 4, one warm-up and three timed
+   device-resident epochs over 12,800 synthetic uint8 images, with the
+   launch counts set to 0 just before and read just after (K1's form once
+   per step, nothing else); the loss and sign loss must fall. Then two
+   steps on the card against the same two steps on the CPU, the trained
+   model through the serving entry points, and one profiled train step.
+7. The entry point, in-process: ``cli.train_v1`` scheme 0, then
+   ``cli.train_v23`` V2 with keys derived from its last.ckpt, ``--bf16
+   --epoch-scan --pallas-input``, with launch counts (K1 bf16 every step,
+   K2 bf16 in each epoch's validation and signature detection); then
+   ``--eval`` of that run, ``verify_ownership`` of its best.ckpt loaded into
+   a fresh model, and one V3 epoch. Logdirs under ``build/``.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
@@ -67,6 +75,11 @@ CHECK_SHAPES = [MAIN_SHAPE, (1, 512, 4, 4), (1024, 512, 4, 4),
 # the card against the plain version of the same arithmetic: the GAP sums
 # in another order (tests/test_pallas.py's tolerance)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
+# K2's bf16 form against its plain version: at most one bf16 unit in the
+# last place (both take the normalize in the same IEEE f32 operations, so
+# it is expected bit for bit); scale/bias as the f32 form's
+BF16_ULPS = 1
+BF16 = torch.bfloat16
 # the card's model against the CPU's: convolutions accumulate in other
 # orders (tests/test_torch_export.py:102's tolerance)
 LOGITS_TOL = dict(rtol=1e-3, atol=2e-4)
@@ -95,6 +108,25 @@ TIMED_EPOCHS = 3
 PARITY_BATCH = 32
 TRAIN_TOL = dict(rtol=1e-3, atol=1e-4)
 UPDATE_TOL = 5e-2
+# bf16 on the card against bf16 on the CPU. A bf16 forward or backward is
+# ill-conditioned elementwise (one bf16 rounding that lands the other way
+# moves whole gradients), so the bounds are tests/test_torch_port_bf16.py's
+# for the port against JAX: each parameter's update within 0.6 of its norm
+# and the whole update within 0.12; metrics and BN statistics within 1e-2;
+# private logits within 5e-2 of their norm; forged per-layer detection
+# rates within 8 of 512 bits of the CPU run's
+BF16_TRAIN_TOL = dict(rtol=1e-2, atol=8e-3)
+BF16_UPDATE_TOL = 0.6
+BF16_WHOLE_UPDATE_TOL = 0.12
+BF16_LOGITS_NORM_TOL = 5e-2
+BF16_FORGED_TOL = 8 / 512
+# the entry point: the JAX package's CLIs' flags on the port's, logdirs
+# under build/ (ignored by git); bench.py's 12,800 images per epoch
+CLI_LOGDIR = os.path.join("build", "chip_smoke_logs")
+CLI_COMMON = ["--arch", "resnet", "--dataset", "synthetic",
+              "--batch-size", str(TRAIN_BATCH), "--logdir", CLI_LOGDIR]
+CLI_V2 = ["--passport-config", "passport_configs/resnet18_passport.json",
+          "--key-type", "shuffle", "--bf16", "--epoch-scan", "--pallas-input"]
 
 
 def log(*parts):
@@ -245,10 +277,21 @@ def memory_diagnostics(timer: DeviceTimer, fn, kernel: str, copy,
     log(f"{label} memory diagnostics: {json.dumps(diag)} [{smi}]")
 
 
-def epilogue_inputs(shape, gen):
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two bf16 tensors in bf16 units in the
+    last place, on a monotone line of their bit patterns."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def epilogue_inputs(shape, gen, dtype=torch.float32):
+    """y in ``dtype``; the passport outputs and statistics in f32."""
     n, c, h, w = shape
     dev = "cuda"
-    y = torch.randn(shape, generator=gen).to(dev)
+    y = torch.randn(shape, generator=gen).to(dev, dtype)
     key_out = torch.randn((1, c, h, w), generator=gen).to(dev)
     skey_out = torch.randn((1, c, h, w), generator=gen).to(dev)
     mean = torch.randn(c, generator=gen).to(dev)
@@ -256,17 +299,21 @@ def epilogue_inputs(shape, gen):
     return y, key_out, skey_out, mean, var
 
 
-def check_epilogue(gen) -> float:
-    """The kernel against its plain version; returns the largest error."""
+def check_epilogue(gen, dtype=torch.float32) -> float:
+    """The kernel's ``dtype`` form against its plain version; returns the
+    largest error. The bf16 form's out within BF16_ULPS, its scale and bias
+    equal to the f32 form's on the same passport outputs."""
     from deepipr_tpu_torch.ops.passport_epilogue import (
         passport_epilogue,
         passport_epilogue_reference,
     )
 
     worst = 0.0
-    cases = [(shape, epilogue_inputs(shape, gen)) for shape in CHECK_SHAPES]
-    # y and key_out 4 bytes off 16-byte alignment: the scalar path at H*W=16
-    y, key_out, *rest = epilogue_inputs(MAIN_SHAPE, gen)
+    cases = [(shape, epilogue_inputs(shape, gen, dtype))
+             for shape in CHECK_SHAPES]
+    # y and key_out one element off 16-byte alignment: the scalar path at
+    # H*W = 16
+    y, key_out, *rest = epilogue_inputs(MAIN_SHAPE, gen, dtype)
     cases.append(("misaligned y and key_out", (misaligned(y),
                                                misaligned(key_out), *rest)))
     for label, args in cases:
@@ -280,18 +327,30 @@ def check_epilogue(gen) -> float:
                 if not torch.equal(g, a):
                     raise AssertionError(f"passport_epilogue {label}: two "
                                          f"calls gave different {name}")
-                if name == "out":
-                    torch.testing.assert_close(g, w, **KERNEL_TOL)
-                else:
+                if name != "out":
                     torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
-                worst = max(worst, (g - w).abs().max().item())
-        log(f"passport_epilogue {label}: agrees with the plain version "
-            f"(relu on and off), bit-identical over two calls")
+                elif dtype == torch.float32:
+                    torch.testing.assert_close(g, w, **KERNEL_TOL)
+                elif g.dtype != dtype or bf16_ulps(g, w) > BF16_ULPS:
+                    raise AssertionError(
+                        f"passport_epilogue {label} {dtype}: {g.dtype}, "
+                        f"{bf16_ulps(g, w)} ulps from the plain version")
+                worst = max(worst, (g.float() - w.float()).abs().max().item())
+            if dtype != torch.float32:
+                f32 = passport_epilogue(args[0].float().contiguous(),
+                                        *args[1:], relu=relu)
+                if not all(torch.equal(g, f) for g, f in zip(got[1:],
+                                                             f32[1:])):
+                    raise AssertionError(f"passport_epilogue {label}: the "
+                                         "bf16 form's scale/bias differ "
+                                         "from the f32 form's")
+        log(f"passport_epilogue {label} {dtype}: agrees with the plain "
+            "version (relu on and off), bit-identical over two calls")
     return worst
 
 
 def misaligned(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
     boundary."""
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = flat[1:].view(t.shape)
@@ -299,13 +358,15 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
-def time_epilogue(gen, timer: DeviceTimer, shape, smi: str) -> dict:
+def time_epilogue(gen, timer: DeviceTimer, shape, smi: str,
+                  dtype=torch.float32) -> dict:
     from deepipr_tpu_torch.ops.passport_epilogue import (
         passport_epilogue,
         passport_epilogue_reference,
     )
 
-    y, key_out, skey_out, mean, var = args = epilogue_inputs(shape, gen)
+    y, key_out, skey_out, mean, var = args = epilogue_inputs(shape, gen,
+                                                             dtype)
     _, scale, bias = passport_epilogue_reference(*args)
 
     def library():
@@ -313,7 +374,10 @@ def time_epilogue(gen, timer: DeviceTimer, shape, smi: str) -> dict:
         F.batch_norm(y, mean, var, scale, bias, False, 0.0, 1e-5).relu_()
 
     n, c, h, w = shape
-    nbytes = 4 * (2 * n * c * h * w + 2 * c * h * w + 4 * c)
+    # y read and out written in their dtype; the passport outputs, the
+    # statistics and scale/bias in f32
+    nbytes = (y.element_size() * 2 * n * c * h * w
+              + 4 * (2 * c * h * w + 4 * c))
     flops = 5 * n * c * h * w + 2 * c * h * w
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / F32_FLOPS_PER_S * 1e3}
@@ -322,7 +386,7 @@ def time_epilogue(gen, timer: DeviceTimer, shape, smi: str) -> dict:
     memory_diagnostics(timer, lambda: passport_epilogue(*args),
                        "passport_epilogue_kernel",
                        lambda: torch.mul(y, 1.0, out=copy), "MulFunctor",
-                       f"passport_epilogue {shape}", smi)
+                       f"passport_epilogue {shape} {dtype}", smi)
     return {
         "ms": timer.ms(lambda: passport_epilogue(*args)),
         "profiled_ms": timer.profiled_ms(lambda: passport_epilogue(*args),
@@ -363,10 +427,11 @@ def augment_cases(seed: int):
     return cases
 
 
-def check_augment(cases) -> float:
-    """K1 against its plain version on the same card tensors: the pixels
-    (mean 0, std 1/255) bit for bit, the normalized batch at AUGMENT_TOL.
-    Returns the largest normalized error."""
+def check_augment(cases, dtype=torch.float32) -> float:
+    """K1's ``dtype`` form against its plain version on the same card
+    tensors: the pixels (mean 0, std 1/255) bit for bit, the normalized
+    batch at AUGMENT_TOL in f32 and bit for bit in bf16. Returns the
+    largest normalized error."""
     from deepipr_tpu_torch.data.device_augment import (
         augment_reference,
         scaled_stats,
@@ -377,27 +442,34 @@ def check_augment(cases) -> float:
     one = torch.ones(3, device="cuda")
     worst = 0.0
     for label, ds, idx, draws, pad in cases:
+        exact = dtype != torch.float32
         for stats, tol in (((zero, one), None),
                            (scaled_stats(device="cuda"), AUGMENT_TOL)):
-            got = fused_augment(ds, idx, *draws, *stats, pad)
+            got = fused_augment(ds, idx, *draws, *stats, pad, dtype)
             torch.cuda.synchronize()
-            want = augment_reference(ds[idx.long()], *draws, pad, *stats)
-            if got.shape != want.shape or got.dtype != torch.float32:
+            want = augment_reference(ds[idx.long()], *draws, pad, *stats,
+                                     dtype)
+            if got.shape != want.shape or got.dtype != dtype:
                 raise AssertionError(f"fused_augment {label}: got "
                                      f"{got.dtype} {tuple(got.shape)}")
-            if tol is None:
-                if not torch.equal(got, want):
-                    raise AssertionError(f"fused_augment {label}: pixels "
-                                         "differ from the plain version")
+            if tol is None or exact:
+                if not torch.equal(got.view(torch.int16 if exact else
+                                            torch.int32),
+                                   want.view(torch.int16 if exact else
+                                             torch.int32)):
+                    raise AssertionError(f"fused_augment {label} {dtype}: "
+                                         "differs from the plain version")
             else:
                 torch.testing.assert_close(got, want, **tol)
-                worst = max(worst, (got - want).abs().max().item())
-        log(f"fused_augment {label}: agrees with the plain version (pixels "
-            "bit for bit, normalized within 3e-7)")
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+        log(f"fused_augment {label} {dtype}: agrees with the plain version "
+            f"(pixels bit for bit, normalized "
+            f"{'bit for bit' if exact else 'within 3e-7'})")
     return worst
 
 
-def time_augment(timer: DeviceTimer, case, smi: str) -> dict:
+def time_augment(timer: DeviceTimer, case, smi: str,
+                 dtype=torch.float32) -> dict:
     from deepipr_tpu_torch.data.device_augment import (
         augment_reference,
         scaled_stats,
@@ -408,27 +480,29 @@ def time_augment(timer: DeviceTimer, case, smi: str) -> dict:
     mean255, std255 = scaled_stats(device="cuda")
     _, h, w, c = ds.shape
     b = idx.shape[0]
-    # the gathered rows read once, the f32 batch written once, four int32
-    # per row (idx, oy, ox, flip) and the two (C,) f32 statistics
-    nbytes = b * h * w * c * (1 + 4) + 16 * b + 8 * c
+    size = torch.empty((), dtype=dtype).element_size()
+    # the gathered rows read once, the batch written once in its dtype, four
+    # int32 per row (idx, oy, ox, flip) and the two (C,) f32 statistics
+    nbytes = b * h * w * c * (1 + size) + 16 * b + 8 * c
     flops = 2 * b * h * w * c  # a subtract and a divide per output
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / F32_FLOPS_PER_S * 1e3}
     bound_by = max(bound, key=bound.get)
 
     def kernel():
-        fused_augment(ds, idx, *draws, mean255, std255, pad)
+        fused_augment(ds, idx, *draws, mean255, std255, pad, dtype)
 
-    rows, batch = ds[:b], torch.empty((b, h, w, c), device="cuda")
+    rows = ds[:b]
+    batch = torch.empty((b, h, w, c), dtype=dtype, device="cuda")
     memory_diagnostics(timer, kernel, "fused_augment_kernel",
                        lambda: batch.copy_(rows), "direct_copy",
-                       f"fused_augment {case[0]}", smi)
+                       f"fused_augment {case[0]} {dtype}", smi)
 
     return {
         "ms": timer.ms(kernel),
         "profiled_ms": timer.profiled_ms(kernel, "fused_augment_kernel"),
         "plain_ms": timer.ms(lambda: augment_reference(
-            ds[idx.long()], *draws, pad, mean255, std255)),
+            ds[idx.long()], *draws, pad, mean255, std255, dtype)),
         "library_ms": None,  # no single PyTorch call gathers, crops and flips
         "bound_ms": bound[bound_by],
         "bound_by": bound_by,
@@ -438,10 +512,11 @@ def time_augment(timer: DeviceTimer, case, smi: str) -> dict:
 # ---------------------------------------------------------------- model
 
 @torch.no_grad()
-def random_model(seed: int):
-    """ResNet18Private on the CPU: weights, passports and BN running stats
-    from ``seed``, each signature ``b`` set to the sign of its derived scale
-    (the signature a trained model carries)."""
+def random_model(seed: int, dtype=None):
+    """ResNet18Private on the CPU in compute dtype ``dtype``: weights,
+    passports and BN running stats from ``seed``, each signature ``b`` set
+    to the sign of its derived scale (the signature a trained model
+    carries)."""
     from deepipr_tpu_torch.attacks.common import derived_affines
     from deepipr_tpu_torch.models.registry import build_model
     from deepipr_tpu_torch.ops.norms import BatchNorm
@@ -454,7 +529,7 @@ def random_model(seed: int):
         load_passport_config("passport_configs/resnet18_passport.json"),
         "bn", "random", 0.1)
     model = build_model("resnet18", 10, norm_type="bn", passport_kwargs=kw,
-                        private=True, seed=seed, device="cpu")
+                        private=True, seed=seed, dtype=dtype, device="cpu")
     gen = torch.Generator().manual_seed(seed + 1)
     for m in model.modules():
         if isinstance(m, BatchNorm):
@@ -463,7 +538,8 @@ def random_model(seed: int):
     for path, aux in derived_affines(model, (1, 32, 32, 3), True).items():
         block = model.get_submodule(path.replace("/", "."))
         block.b.copy_(torch.where(aux["scale"] >= 0, 1.0, -1.0))
-    log(f"model: ResNet18Private, CIFAR-10 32x32x3, passports in {plkeys}")
+    log(f"model: ResNet18Private {dtype or torch.float32}, CIFAR-10 32x32x3, "
+        f"passports in {plkeys}")
     return model
 
 
@@ -485,9 +561,15 @@ def request_batches(count: int, seed: int):
             for i in range(0, len(x), REQUEST_BATCH)]
 
 
-def serve_path(gpu_model, cpu_model, batches, forged, launches) -> dict:
+def serve_path(gpu_model, cpu_model, batches, forged, launches,
+               form: str = "passport_epilogue") -> dict:
     """The serving and verification path on the card, checked against the
-    CPU. ``launches()`` reads the kernels' launch counts."""
+    CPU. ``launches()`` reads the kernels' launch counts; ``form`` names the
+    K2 form the model's dtype takes. A bf16 model's private logits are held
+    to the CPU's norm-wise (BF16_LOGITS_NORM_TOL) and its forged per-layer
+    detection rates within BF16_FORGED_TOL of the CPU's; an f32 model's
+    elementwise and exactly."""
+    bf16 = form.endswith("bf16")
     from deepipr_tpu_torch.serve import Predictor, verify_ownership
     from deepipr_tpu_torch.train.steps import make_dual_eval_step, run_dual_eval
 
@@ -495,9 +577,9 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches) -> dict:
     private = Predictor(gpu_model, ind=1)
     for batch in batches:
         logits0 = public.logits(batch["image"])
-        before = launches()["passport_epilogue"]
+        before = launches()[form]
         logits1 = private.logits(batch["image"])
-        per_forward = launches()["passport_epilogue"] - before
+        per_forward = launches()[form] - before
         if per_forward != 5:
             raise AssertionError(f"{per_forward} epilogue launches in one "
                                  "private forward, expected 5")
@@ -507,19 +589,30 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches) -> dict:
                 raise AssertionError("non-finite or misshapen logits")
     cpu_logits = Predictor(cpu_model, ind=1, device="cpu").logits(
         batches[0]["image"])
-    torch.testing.assert_close(private.logits(batches[0]["image"]).cpu(),
-                               cpu_logits, **LOGITS_TOL)
+    gpu_logits = private.logits(batches[0]["image"]).cpu()
+    if bf16:
+        err = ((gpu_logits - cpu_logits).norm() / cpu_logits.norm()).item()
+        log(f"  bf16 private logits, card vs CPU: {err:.3g} of their norm")
+        if err > BF16_LOGITS_NORM_TOL:
+            raise AssertionError(f"bf16 private logits differ from the CPU "
+                                 f"run's by {err} of their norm")
+    else:
+        torch.testing.assert_close(gpu_logits, cpu_logits, **LOGITS_TOL)
     log("Predictor: public and private branches answered "
         f"{len(batches)} batches of {REQUEST_BATCH}; private logits match "
-        "the CPU run; 5 epilogue launches per private forward")
+        f"the CPU run; 5 {form} launches per private forward")
 
     step = make_dual_eval_step(gpu_model)
     metrics = run_dual_eval(step, batches)
     cpu_sums = make_dual_eval_step(cpu_model, device="cpu")(batches[0])
     gpu_sums = step(batches[0])
     for k, v in cpu_sums.items():
-        torch.testing.assert_close(gpu_sums[k].cpu().double(), v.double(),
-                                   rtol=1e-3, atol=1e-2)
+        if bf16:  # one bf16 logit flip moves a correct count by one
+            torch.testing.assert_close(gpu_sums[k].cpu().double(), v.double(),
+                                       rtol=2e-2, atol=3.0)
+        else:
+            torch.testing.assert_close(gpu_sums[k].cpu().double(),
+                                       v.double(), rtol=1e-3, atol=1e-2)
     if not all(np.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite dual-eval metrics {metrics}")
     log(f"dual eval over {len(batches)} batches: {metrics}")
@@ -533,17 +626,19 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches) -> dict:
                                 claimed_passports=forged, device="cpu")
     if fake["verified"] or not fake["detection_rate"] < 0.7:
         raise AssertionError(f"forged passports verified: {fake}")
-    if fake["layers"] != fake_cpu["layers"]:
+    gap = max(abs(fake["layers"][k] - fake_cpu["layers"][k])
+              for k in fake["layers"])
+    if gap > (BF16_FORGED_TOL if bf16 else 0.0):
         raise AssertionError(f"forged rates differ: card {fake['layers']}, "
                              f"CPU {fake_cpu['layers']}")
     log(f"verify_ownership: genuine {genuine['detection_rate']} "
         f"(verified={genuine['verified']}); forged "
         f"{fake['detection_rate']:.4f}, per layer {fake['layers']} "
-        "(equal to the CPU run)")
+        f"(largest difference from the CPU run's: {gap})")
     return metrics
 
 
-def throughput(gpu_model, smi: str) -> None:
+def throughput(gpu_model, smi: str, label: str = "f32 (TF32 off)") -> None:
     from deepipr_tpu_torch.serve import Predictor, verify_ownership
 
     gen = torch.Generator().manual_seed(7)
@@ -561,15 +656,15 @@ def throughput(gpu_model, smi: str) -> None:
                 pred.logits(x)
             torch.cuda.synchronize()
             rate = reps * batch / (time.perf_counter() - t)
-            log(f"throughput: Predictor ind={ind} batch={batch} f32 "
-                f"(TF32 off): {rate:.1f} img/s [{smi}]")
+            log(f"throughput: Predictor ind={ind} batch={batch} {label}: "
+                f"{rate:.1f} img/s [{smi}]")
     times = []
     for _ in range(20):
         t = time.perf_counter()
         verify_ownership(gpu_model, (1, 32, 32, 3), private=True)
         times.append((time.perf_counter() - t) * 1e3)
-    log(f"latency: verify_ownership median {statistics.median(times):.3f} ms "
-        f"over 20 calls [{smi}]")
+    log(f"latency: verify_ownership {label} median "
+        f"{statistics.median(times):.3f} ms over 20 calls [{smi}]")
 
 
 def profiled(fn, reps: int, what: str, smi: str, top: int = 12) -> dict:
@@ -623,9 +718,10 @@ def where_time_goes(gpu_model, smi: str, reps: int = 5) -> None:
 
 # ------------------------------------------------------------- training
 
-def train_model(seed: int, device: str):
+def train_model(seed: int, device: str, dtype=None):
     """bench.py's model: V2 ResNet18Private, resnet18_passport.json with
-    ('bn', 'shuffle', 0.1), weights, passports and signatures from seed."""
+    ('bn', 'shuffle', 0.1), weights, passports and signatures from seed, in
+    compute dtype ``dtype``."""
     from deepipr_tpu_torch.models.registry import build_model
     from deepipr_tpu_torch.utils.config import (
         construct_passport_kwargs,
@@ -636,15 +732,16 @@ def train_model(seed: int, device: str):
         load_passport_config("passport_configs/resnet18_passport.json"),
         "bn", "shuffle", 0.1)
     return build_model("resnet18", 10, norm_type="bn", passport_kwargs=kw,
-                       private=True, seed=seed, device=device)
+                       private=True, seed=seed, dtype=dtype, device=device)
 
 
-def train_path(seed: int, smi: str, launches, reset):
-    """bench.py's loop through the port's entry points: one warm-up and
-    TIMED_EPOCHS timed epochs, host-clocked with one read of the epoch's
-    mean metrics at its end; img/s from the best timed epoch. Returns the
-    trained model, its state, the resident set, the path's launch counts
-    and held-out batches of the same synthetic distribution."""
+def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32):
+    """bench.py's loop through the port's entry points, in ``dtype`` (K1's
+    output and the model's compute dtype): one warm-up and TIMED_EPOCHS
+    timed epochs, host-clocked with one read of the epoch's mean metrics at
+    its end; img/s from the best timed epoch. Returns the trained model,
+    its state, the resident set, the path's launch counts, held-out batches
+    of the same synthetic distribution and the img/s."""
     from deepipr_tpu_torch.data.datasets import normalize, synthetic_dataset
     from deepipr_tpu_torch.train.epoch import (
         device_resident,
@@ -657,10 +754,12 @@ def train_path(seed: int, smi: str, launches, reset):
     held_out = [{"image": normalize(x_test[i:i + REQUEST_BATCH]),
                  "label": y_test[i:i + REQUEST_BATCH]}
                 for i in range(0, len(x_test), REQUEST_BATCH)]
-    model = train_model(seed, "cuda")
+    bf16 = dtype == BF16
+    k1 = "fused_augment_bf16" if bf16 else "fused_augment"
+    model = train_model(seed, "cuda", dtype if bf16 else None)
     xs, ys = device_resident(x, y)
     epoch_fn = make_epoch_train_fn(model, True, TRAIN_BATCH, TRAIN_PAD,
-                                   seed=seed)
+                                   seed=seed, out_dtype=dtype)
     state = TrainState.create(model, TRAIN_LR)
     steps = TRAIN_IMAGES // TRAIN_BATCH
     torch.cuda.synchronize()
@@ -678,14 +777,11 @@ def train_path(seed: int, smi: str, launches, reset):
             f"{seconds[-1]:.3f} s, {history[-1]}")
     counts = launches()
 
-    log(f"training-path launches: {counts}")
+    log(f"training-path launches ({dtype}): {counts}")
     epochs = 1 + TIMED_EPOCHS
-    if counts["fused_augment"] != steps * epochs:
-        raise AssertionError(f"fused_augment launched {counts['fused_augment']}"
-                             f" times in {epochs} epochs of {steps} steps")
-    if counts["passport_epilogue"] != 0:
-        raise AssertionError("the eval-only passport epilogue launched "
-                             "during training")
+    if counts[k1] != steps * epochs or sum(counts.values()) != counts[k1]:
+        raise AssertionError(f"{k1} launched {counts[k1]} times in {epochs} "
+                             f"epochs of {steps} steps; all counts {counts}")
     for k in ("loss", "sign_loss"):
         if not history[-1][k] < history[0][k]:
             raise AssertionError(f"mean {k} did not fall: {history[0][k]} in "
@@ -694,18 +790,22 @@ def train_path(seed: int, smi: str, launches, reset):
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite training metrics {history}")
     best = min(seconds[1:])
-    log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH} f32 "
-        f"(TF32 off), device-resident epoch incl. K1: "
-        f"{steps * TRAIN_BATCH / best:.1f} img/s (best of {TIMED_EPOCHS} "
-        f"epochs: {', '.join(f'{s:.3f}' for s in seconds[1:])} s) [{smi}]")
+    rate = steps * TRAIN_BATCH / best
+    log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH} "
+        f"{'bf16' if bf16 else 'f32 (TF32 off)'}, device-resident epoch "
+        f"incl. K1: {rate:.1f} img/s (best of {TIMED_EPOCHS} epochs: "
+        f"{', '.join(f'{s:.3f}' for s in seconds[1:])} s) [{smi}]")
     log(f"peak device memory, training: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return model, state, xs, ys, counts, held_out
+    return model, state, xs, ys, counts, held_out, rate
 
 
-def train_parity(seed: int) -> None:
+def train_parity(seed: int, dtype=torch.float32) -> None:
     """Two steps from the same weights, permutation and draws: the card
-    through the kernels, the CPU through their plain versions."""
+    through the kernels, the CPU through their plain versions. In bf16 the
+    parameters are held norm-wise only (BF16_UPDATE_TOL per parameter,
+    BF16_WHOLE_UPDATE_TOL for the whole update), the metrics and BN
+    statistics at BF16_TRAIN_TOL."""
     from deepipr_tpu_torch.data.datasets import synthetic_dataset
     from deepipr_tpu_torch.data.device_augment import draw_augment
     from deepipr_tpu_torch.train.epoch import (
@@ -719,13 +819,14 @@ def train_parity(seed: int) -> None:
     gen = torch.Generator().manual_seed(seed + 4)
     perm = torch.randperm(len(x), generator=gen)
     draws = [draw_augment(gen, PARITY_BATCH, TRAIN_PAD) for _ in range(2)]
-    cpu_model = train_model(seed + 3, "cpu")
+    bf16 = dtype == BF16
+    cpu_model = train_model(seed + 3, "cpu", dtype if bf16 else None)
     start = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
     runs = {}
     for dev, model in (("cpu", cpu_model),
                        ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
         fn = make_epoch_train_fn(
-            model, True, PARITY_BATCH, TRAIN_PAD, device=dev,
+            model, True, PARITY_BATCH, TRAIN_PAD, device=dev, out_dtype=dtype,
             draws=lambda step, n, dev=dev: tuple(t.to(dev)
                                                  for t in draws[step]))
         state = TrainState.create(model, TRAIN_LR)
@@ -733,33 +834,41 @@ def train_parity(seed: int) -> None:
                             perm=perm.to(dev))
         runs[dev] = (model, {k: v.item() for k, v in metrics.items()})
     (cpu, cpu_metrics), (gpu, gpu_metrics) = runs["cpu"], runs["cuda"]
-    log(f"train parity: 2 steps at batch {PARITY_BATCH}, card vs CPU: "
-        f"metrics {gpu_metrics} vs {cpu_metrics}")
+    log(f"train parity ({dtype}): 2 steps at batch {PARITY_BATCH}, card vs "
+        f"CPU: metrics {gpu_metrics} vs {cpu_metrics}")
+    tol = BF16_TRAIN_TOL if bf16 else TRAIN_TOL
+    update_tol = BF16_UPDATE_TOL if bf16 else UPDATE_TOL
     gpu_state = gpu.state_dict()
-    beyond, update_err = {}, {}
+    beyond, update_err, diffs, updates = {}, {}, [], []
     for name, want in cpu.state_dict().items():
         got = gpu_state[name].cpu()
-        limit = TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * want.abs()
+        limit = tol["atol"] + tol["rtol"] * want.abs()
         beyond[name] = ((got - want).abs() - limit).max().item()
         if name in start:
-            update = (want - start[name]).norm().item()
-            update_err[name] = (got - want).norm().item() / max(update, 1e-30)
+            update = want - start[name]
+            update_err[name] = ((got - want).norm().item()
+                                / max(update.norm().item(), 1e-30))
+            diffs.append((got - want).ravel())
+            updates.append(update.ravel())
+    whole = (torch.cat(diffs).norm() / torch.cat(updates).norm()).item()
     worst = max(beyond, key=beyond.get)
     worst_update = max(update_err, key=update_err.get)
-    log(f"  largest excess over rtol 1e-3 / atol 1e-4: {beyond[worst]:.3g} "
-        f"at {worst}; largest parameter-update difference "
-        f"{update_err[worst_update]:.3g} of the update's norm at "
-        f"{worst_update}")
+    log(f"  largest excess over rtol {tol['rtol']} / atol {tol['atol']}: "
+        f"{beyond[worst]:.3g} at {worst}; largest parameter-update "
+        f"difference {update_err[worst_update]:.3g} of the update's norm at "
+        f"{worst_update}; whole update {whole:.3g}")
     failed = [k for k, v in cpu_metrics.items()
-              if not abs(gpu_metrics[k] - v)
-              <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(v)]
+              if not abs(gpu_metrics[k] - v) <= tol["atol"] + tol["rtol"] * abs(v)]
     failed += [k for k in beyond
                if k not in start and beyond[k] > 0]  # BN stats, passports
-    failed += [k for k, e in update_err.items() if e > UPDATE_TOL]
+    failed += [k for k, e in update_err.items() if e > update_tol]
+    if bf16 and whole > BF16_WHOLE_UPDATE_TOL:
+        failed.append(f"whole update {whole}")
     if failed:
         raise AssertionError(f"card and CPU training differ in {failed}")
-    log(f"  metrics, BN statistics and passports within rtol 1e-3 / atol "
-        f"1e-4; every parameter's update within {UPDATE_TOL} of its norm")
+    log(f"  metrics, BN statistics and passports within rtol {tol['rtol']} "
+        f"/ atol {tol['atol']}; every parameter's update within "
+        f"{update_tol} of its norm")
 
 
 def trained_serving(model, held_out) -> None:
@@ -791,20 +900,113 @@ def trained_serving(model, held_out) -> None:
 
 
 def train_profile(model, state, xs, ys, seed: int, smi: str,
-                  reps: int = 3) -> None:
+                  reps: int = 3, dtype=torch.float32) -> None:
     """Device time by kernel over ``reps`` train steps at batch 256, K1's
     share among them."""
     from deepipr_tpu_torch.train.steps import make_train_step
 
-    step = make_train_step(model, True, pad=TRAIN_PAD, seed=seed)
+    step = make_train_step(model, True, pad=TRAIN_PAD, seed=seed,
+                           out_dtype=dtype)
     rows = torch.randperm(xs.shape[0], device="cuda")[:TRAIN_BATCH].int()
     batch = {"image": xs, "index": rows, "label": ys[rows.long()]}
     step(state, batch)
     us = profiled(lambda: step(state, batch), reps,
-                  f"train step, batch {TRAIN_BATCH}", smi, top=16)
+                  f"train step {dtype}, batch {TRAIN_BATCH}", smi, top=16)
     k1 = sum(t for name, t in us.items() if "fused_augment" in name)
     log(f"  K1 fused_augment: {k1:.1f} us/step, "
         f"{100 * k1 / sum(us.values()):.2f} % of the step's device time")
+
+
+# ------------------------------------------------------------ entry point
+
+def history(logdir: str) -> list:
+    import csv
+
+    with open(os.path.join(logdir, "history.csv")) as f:
+        return [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
+def cli_path(smi: str, launches, reset) -> dict:
+    """The training entry point in-process, as a user runs it: scheme 0
+    (train_v1), then V2 from its last.ckpt with pretrained-derived shuffle
+    keys, bf16 and the device-resident epoch (train_v23), then --eval of
+    that run, then its best.ckpt loaded into a fresh model and verified;
+    then one V3 epoch. Returns the V2 run's launch counts."""
+    import shutil
+
+    from deepipr_tpu_torch.cli import train_v1, train_v23
+    from deepipr_tpu_torch.models.registry import build_model
+    from deepipr_tpu_torch.serve import verify_ownership
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.utils.checkpoint import load_state
+
+    shutil.rmtree(CLI_LOGDIR, ignore_errors=True)
+    size = {"synthetic_train": TRAIN_IMAGES}
+    t = time.perf_counter()
+    run1 = train_v1.main(CLI_COMMON + ["--epochs", "2"], **size)
+    log(f"entry point: scheme 0, 2 epochs, in {time.perf_counter() - t:.1f} s")
+    pretrained = os.path.join(run1.logdir, "models", "last.ckpt")
+
+    epochs = 3
+    reset()
+    t = time.perf_counter()
+    run2 = train_v23.main(CLI_COMMON + CLI_V2 + [
+        "--pretrained-path", pretrained, "--epochs", str(epochs)], **size)
+    counts = launches()
+    log(f"entry point: V2 bf16 --epoch-scan, {epochs} epochs, in "
+        f"{time.perf_counter() - t:.1f} s; launches {counts}")
+    for run in (run1, run2):
+        for name in ("config.json", "history.csv", "models/best.ckpt",
+                     "models/last.ckpt"):
+            if not os.path.exists(os.path.join(run.logdir, name)):
+                raise AssertionError(f"{run.logdir} lacks {name}")
+    rows = history(run2.logdir)
+    log(f"  V2 history: {rows}")
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    valid_batches = len(run2.valid_data)
+    # each epoch's validation: 5 launches per private forward of a batch,
+    # and 5 in the signature detection's forward
+    want = {"fused_augment_bf16": steps * epochs,
+            "passport_epilogue_bf16": epochs * 5 * (valid_batches + 1)}
+    if counts != {**dict.fromkeys(counts, 0), **want}:
+        raise AssertionError(f"entry-point launches {counts}, expected {want}")
+    if not rows[-1]["train_loss"] < rows[0]["train_loss"]:
+        raise AssertionError("the V2 run's training loss did not fall")
+    signature = {k: v for k, v in rows[-1].items() if k.startswith("s_")}
+    if rows[-1]["train_sign_acc"] != 1.0 or set(signature.values()) != {1.0}:
+        raise AssertionError(f"the V2 run's signature is not embedded: "
+                             f"sign_acc {rows[-1]['train_sign_acc']}, "
+                             f"detection {signature}")
+
+    expid = os.path.basename(run2.logdir)
+    evaluated = train_v23.main(CLI_COMMON + CLI_V2 + [
+        "--pretrained-path", pretrained, "--eval", "--exp-id", expid],
+        **size).evaluate_only()
+    if not all(np.isfinite(v) for v in evaluated.values()):
+        raise AssertionError(f"--eval gave {evaluated}")
+
+    fresh = build_model("resnet18", 10, passport_kwargs=run2.passport_kwargs,
+                        private=True, seed=12345, dtype=BF16)
+    load_state(os.path.join(run2.logdir, "models", "best.ckpt"),
+               TrainState.create(fresh, 0.0), restore_opt=False)
+    verdict = verify_ownership(fresh, (1, 32, 32, 3), private=True)
+    if verdict["detection_rate"] != 1.0:
+        raise AssertionError(f"best.ckpt does not verify: {verdict}")
+    log(f"entry point: --eval of run {expid}: {evaluated}; best.ckpt in a "
+        f"fresh bf16 model verifies (detection "
+        f"{verdict['detection_rate']}) [{smi}]")
+
+    t = time.perf_counter()
+    run3 = train_v23.main(CLI_COMMON + CLI_V2 + [
+        "--train-backdoor", "--pretrained-path", pretrained, "--epochs", "1"])
+    header = history(run3.logdir)[0]
+    if "wm_total_acc" not in header:
+        raise AssertionError(f"the V3 run's history lacks the trigger set: "
+                             f"{sorted(header)}")
+    log(f"entry point: V3 bf16 --epoch-scan, 1 epoch, in "
+        f"{time.perf_counter() - t:.1f} s: {history(run3.logdir)[-1]}")
+    return counts
 
 
 # ----------------------------------------------------------------- main
@@ -824,72 +1026,101 @@ def main() -> int:
     build_kernels()
 
     gen = torch.Generator().manual_seed(args.seed)
-    max_err = {"passport_epilogue": check_epilogue(gen)}
+    max_err = {"passport_epilogue": check_epilogue(gen),
+               "passport_epilogue_bf16": check_epilogue(gen, BF16)}
     cases = augment_cases(args.seed)
     max_err["fused_augment"] = check_augment(cases)
+    max_err["fused_augment_bf16"] = check_augment(cases, BF16)
     timer = DeviceTimer()
     floor_ms = timer.floor_ms()
     log(f"event timer floor (one-element zero_, L2 flushed): {floor_ms} ms "
         f"[{smi}]")
     timing = {}
-    for shape in (MAIN_SHAPE, (1024, 512, 4, 4)):
-        timing[shape] = time_epilogue(gen, timer, shape, smi)
-        log(f"passport_epilogue {shape}: {json.dumps(timing[shape])} [{smi}]")
-    timing["fused_augment"] = time_augment(timer, cases[0], smi)
-    log(f"fused_augment {cases[0][0]}: {json.dumps(timing['fused_augment'])} "
-        f"[{smi}]")
+    for form, dtype in (("passport_epilogue", torch.float32),
+                        ("passport_epilogue_bf16", BF16)):
+        for shape in (MAIN_SHAPE, (1024, 512, 4, 4)):
+            t = time_epilogue(gen, timer, shape, smi, dtype)
+            log(f"{form} {shape}: {json.dumps(t)} [{smi}]")
+            if shape == MAIN_SHAPE:
+                timing[form] = t
+    for form, dtype in (("fused_augment", torch.float32),
+                        ("fused_augment_bf16", BF16)):
+        timing[form] = time_augment(timer, cases[0], smi, dtype)
+        log(f"{form} {cases[0][0]}: {json.dumps(timing[form])} [{smi}]")
     del cases, timer
 
     wrappers = {"passport_epilogue": passport_epilogue,
                 "fused_augment": fused_augment}
 
     def launches():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        """Launches of each kernel form, named as in the kernels line."""
+        counts = {}
+        for name, fn in wrappers.items():
+            counts[name] = fn.form_launches[torch.float32]
+            counts[f"{name}_bf16"] = fn.form_launches[BF16]
+        return counts
 
     def reset():
         for fn in wrappers.values():
             fn.launches = 0
+            fn.form_launches = dict.fromkeys(fn.form_launches, 0)
 
-    cpu_model = random_model(args.seed)
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batches = request_batches(3, args.seed)
-    forged = forged_passports(cpu_model, args.seed + 2)
+    serve_counts = {}
+    for form, dtype in (("passport_epilogue", None),
+                        ("passport_epilogue_bf16", BF16)):
+        cpu_model = random_model(args.seed, dtype)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        forged = forged_passports(cpu_model, args.seed + 2)
+        reset()
+        serve_path(gpu_model, cpu_model, batches, forged, launches, form)
+        counts = launches()
+        log(f"serving-path launches ({form}): {counts}")
+        if not counts[form] or sum(counts.values()) != counts[form]:
+            raise AssertionError(f"{form} did not carry the serving path: "
+                                 f"{counts}")
+        serve_counts[form] = counts[form]
+        label = "bf16" if dtype else "f32 (TF32 off)"
+        throughput(gpu_model, smi, label)
+        where_time_goes(gpu_model, smi)
+        log(f"peak device memory: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del gpu_model, cpu_model
 
-    reset()
-    serve_path(gpu_model, cpu_model, batches, forged, launches)
-    serve_counts = launches()
-    log(f"serving-path launches: {serve_counts}")
-    if not serve_counts["passport_epilogue"]:
-        raise AssertionError(f"K2 never launched on the serving path: "
-                             f"{serve_counts}")
+    train_counts, rates = {}, {}
+    for form, dtype in (("fused_augment", torch.float32),
+                        ("fused_augment_bf16", BF16)):
+        trained, state, xs, ys, counts, held_out, rates[form] = train_path(
+            args.seed, smi, launches, reset, dtype)
+        train_counts[form] = counts[form]
+        train_parity(args.seed, dtype)
+        trained_serving(trained, held_out)
+        train_profile(trained, state, xs, ys, args.seed, smi, dtype=dtype)
+        del trained, state, xs, ys
+    log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH}: bf16 "
+        f"{rates['fused_augment_bf16']:.1f} img/s beside f32 "
+        f"{rates['fused_augment']:.1f} img/s "
+        f"({rates['fused_augment_bf16'] / rates['fused_augment']:.2f}x) "
+        f"[{smi}]")
 
-    throughput(gpu_model, smi)
-    where_time_goes(gpu_model, smi)
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del gpu_model, cpu_model
+    cli_path(smi, launches, reset)
 
-    trained, state, xs, ys, train_counts, held_out = train_path(
-        args.seed, smi, launches, reset)
-    train_parity(args.seed)
-    trained_serving(trained, held_out)
-    train_profile(trained, state, xs, ys, args.seed, smi)
-
-    path_launches = {"passport_epilogue": serve_counts["passport_epilogue"],
-                     "fused_augment": train_counts["fused_augment"]}
+    path_launches = {**serve_counts, **train_counts}
     sources = {
         "passport_epilogue": "deepipr_tpu/ops/pallas_fused.py:52",
         "fused_augment": "deepipr_tpu/ops/pallas_augment.py:64",
     }
     kernels = [{
-        "name": name,
+        "name": form,
         "route": "cuda",
-        "source": f"deepipr_tpu_torch/csrc/{name}.cu",
-        "replaces": sources[name],
-        "launches": path_launches[name],
-        "max_abs_err": max_err[name],
+        "source": f"deepipr_tpu_torch/csrc/{form.removesuffix('_bf16')}.cu",
+        "replaces": sources[form.removesuffix("_bf16")],
+        "launches": path_launches[form],
+        "max_abs_err": max_err[form],
         "floor_ms": floor_ms,
-        **timing[MAIN_SHAPE if name == "passport_epilogue" else name],
-    } for name in ("passport_epilogue", "fused_augment")]
+        **timing[form],
+    } for form in ("passport_epilogue", "passport_epilogue_bf16",
+                   "fused_augment", "fused_augment_bf16")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

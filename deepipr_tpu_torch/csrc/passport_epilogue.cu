@@ -1,4 +1,4 @@
-// Fused eval-path passport epilogue for Hopper (sm_90a).
+// Fused eval-path passport epilogue for Hopper (sm_90a), f32 and bf16 forms.
 //
 // Replaces deepipr_tpu/ops/pallas_fused.py::passport_epilogue_pallas (the
 // Pallas TPU kernel _epilogue_kernel). After the one convolution over
@@ -8,22 +8,40 @@
 //     out[n, c] = [relu](scale[c] * ((y[n, c] - mean[c]) * rsqrt(var[c] + eps))
 //                        + bias[c])
 //
-// in the Pallas kernel's order of operations (pallas_fused.py:42-46).
+// key_out, skey_out, mean, var, scale and bias are f32 in both forms; y and
+// out are f32 (passport_epilogue_f32) or bf16 (passport_epilogue_bf16).
+//
+// Rounding. The f32 form computes in the Pallas kernel's order of operations
+// (pallas_fused.py:42-46). Both forms take rsqrt(var + eps) as the correctly
+// rounded 1 / sqrt(var + eps), as the plain version does (torch.sqrt and an
+// IEEE division, on the card and on the CPU), not as the approximate rsqrtf:
+// in bf16 the normalize is then bit-identical to the plain version's, which
+// matters where scale * yn and bias cancel and one ulp of yn would move the
+// small result by many of its own. The bf16 form rounds where its plain version
+// (ops/passport_epilogue.py::passport_epilogue_reference) rounds, which is
+// where the JAX package's XLA path of a bf16 PassportPrivateBlock rounds
+// (layers.py:177-186, flax BatchNorm(dtype=bf16)):
+//   1. yn = bf16((y - mean) * rsqrt(var + eps)), the normalize in f32;
+//   2. scale and bias are cast to bf16;
+//   3. bf16(bf16(scale * yn) + bias): each op in f32 on bf16 operands,
+//      rounded to nearest even, as torch's bf16 ops are; then the ReLU.
+// The GAP and the returned scale/bias are the f32 form's, bit for bit.
 //
 // Bound: memory. Each output element costs one read of y and one write of
-// out and about five flops, so the pass moves 2*N*C*H*W*4 bytes plus
+// out and about five flops, so the pass moves 2*N*C*H*W*sizeof(y) bytes plus
 // 2*C*H*W*4 for the passport rows; at the main path's (256, 512, 4, 4) that
-// is about 17 MB, some 5 us at 3.35 TB/s. Reaching it takes enough loads in
-// flight (Little's law: about 2 MB at HBM3's latency), so the design is about
-// memory-level parallelism and wide accesses.
+// is about 17 MB in f32 (some 5 us at 3.35 TB/s), 8.5 MB in bf16. Reaching it
+// takes enough loads in flight (Little's law: about 2 MB at HBM3's latency),
+// so the design is about memory-level parallelism and wide accesses.
 //
 // Design: y is walked in its memory order. A block owns a tile of tile_c
 // channels and a range of tile_rows batch rows; for each row n its span
-// y[n, c0:c0+tile_c] is tile_c*H*W contiguous floats (2 KB at H*W = 16).
-//   - A thread owns a fixed position in the span (a float4 when H*W % 4 == 0
-//     and y and out are 16-byte aligned, else one float), so its channel is
-//     the same in every row: one 32-bit division per position, and its
-//     (scale, bias, mean, inv) stay in registers for the whole row loop.
+// y[n, c0:c0+tile_c] is tile_c*H*W contiguous elements.
+//   - A thread owns a fixed position in the span (16 bytes, 4 f32 or 8 bf16,
+//     when H*W is a multiple of that and y and out are 16-byte aligned, else
+//     one element), so its channel is the same in every row: one 32-bit
+//     division per position, and its coefficients stay in registers for the
+//     whole row loop.
 //   - It issues the loads of kUnroll rows before it uses the first, and the
 //     first of those during the passport reduction, so the prologue overlaps
 //     memory. The passport loads go first: queued behind 8 MB of y, the
@@ -46,8 +64,10 @@
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,30 +83,69 @@ inline long long smem_floats(int tile_c, int gap_len) {
   return 4LL * tile_c + 2LL * tile_c * gap_len;
 }
 
-__device__ inline float epilogue(float x, float s, float b, float m, float inv,
-                                 int relu) {
-  float v = s * ((x - m) * inv) + b;
+__device__ inline float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One channel's coefficients as a thread applies them.
+struct Coef {
+  float s, b, m, inv;
+};
+
+__device__ inline float epilogue(float x, const Coef& k, int relu) {
+  float v = k.s * ((x - k.m) * k.inv) + k.b;
   if (relu && v < 0.f) v = 0.f;  // NaN passes through, as in jnp.maximum
   return v;
 }
 
-__device__ inline float4 epilogue(float4 x, float s, float b, float m,
-                                  float inv, int relu) {
-  return make_float4(epilogue(x.x, s, b, m, inv, relu),
-                     epilogue(x.y, s, b, m, inv, relu),
-                     epilogue(x.z, s, b, m, inv, relu),
-                     epilogue(x.w, s, b, m, inv, relu));
+// k.s and k.b already rounded to bf16 (make_coef)
+__device__ inline __nv_bfloat16 epilogue(__nv_bfloat16 x, const Coef& k,
+                                         int relu) {
+  const float yn = round_bf16((__bfloat162float(x) - k.m) * k.inv);
+  float v = round_bf16(round_bf16(k.s * yn) + k.b);
+  if (relu && v < 0.f) v = 0.f;
+  return __float2bfloat16_rn(v);
 }
 
-template <bool kVec>
+template <typename T>
+__device__ inline Coef make_coef(float s, float b, float m, float inv) {
+  if constexpr (std::is_same_v<T, float>) {
+    return {s, b, m, inv};
+  } else {
+    return {round_bf16(s), round_bf16(b), m, inv};
+  }
+}
+
+// 16 bytes of y: float4 for f32, uint4 (8 bf16) for bf16
+template <typename T>
+using Vec16 = std::conditional_t<std::is_same_v<T, float>, float4, uint4>;
+
+template <typename T>
+__device__ inline T apply(T x, const Coef& k, int relu) {
+  return epilogue(x, k, relu);
+}
+
+template <typename T>
+__device__ inline Vec16<T> apply(Vec16<T> x, const Coef& k, int relu) {
+  constexpr int kN = 16 / sizeof(T);
+  T e[kN];
+  memcpy(e, &x, 16);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) e[i] = epilogue(e[i], k, relu);
+  Vec16<T> out;
+  memcpy(&out, e, 16);
+  return out;
+}
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kMaxThreads) passport_epilogue_kernel(
-    const float* __restrict__ y, const float* __restrict__ key_out,
+    const T* __restrict__ y, const float* __restrict__ key_out,
     const float* __restrict__ skey_out, const float* __restrict__ mean,
-    const float* __restrict__ var, float* __restrict__ out,
+    const float* __restrict__ var, T* __restrict__ out,
     float* __restrict__ scale, float* __restrict__ bias, int n, int c, int hw,
     int tile_c, int tile_rows, int gap_len, float eps, int relu) {
-  using V = std::conditional_t<kVec, float4, float>;
-  constexpr int kVw = kVec ? 4 : 1;
+  using V = std::conditional_t<kVec, Vec16<T>, T>;
+  constexpr int kVw = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
   extern __shared__ __align__(16) float smem[];
   float* s_scale = smem;  // the skey sums, then scale
   float* s_bias = s_scale + tile_c;  // the key sums, then bias
@@ -137,7 +196,7 @@ __global__ void __launch_bounds__(kMaxThreads) passport_epilogue_kernel(
       }
       for (int i = threadIdx.x; i < tc; i += blockDim.x) {
         s_mean[i] = __ldg(mean + c0 + i);
-        s_inv[i] = rsqrtf(__ldg(var + c0 + i) + eps);
+        s_inv[i] = __frcp_rn(__fsqrt_rn(__ldg(var + c0 + i) + eps));
       }
     }
 #pragma unroll
@@ -183,8 +242,8 @@ __global__ void __launch_bounds__(kMaxThreads) passport_epilogue_kernel(
 
   for (int p = threadIdx.x; p < positions; p += blockDim.x) {
     const int ch = p * kVw / hw;
-    const float s = s_scale[ch], b = s_bias[ch];
-    const float m = s_mean[ch], inv = s_inv[ch];
+    const Coef k =
+        make_coef<T>(s_scale[ch], s_bias[ch], s_mean[ch], s_inv[ch]);
     for (int r = 0; r < rows; r += kUnroll) {
       if (p != threadIdx.x || r > 0) {
 #pragma unroll
@@ -193,23 +252,21 @@ __global__ void __launch_bounds__(kMaxThreads) passport_epilogue_kernel(
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (r + u < rows)
-          ov[(r + u) * row_v + p] = epilogue(buf[u], s, b, m, inv, relu);
+        if (r + u < rows) ov[(r + u) * row_v + p] = apply<T>(buf[u], k, relu);
     }
   }
 }
 
-}  // namespace
-
 // tile_c, tile_rows, threads, gap_len, smem_bytes and vector come from
 // ops/passport_epilogue.py::epilogue_geometry; a geometry the kernel cannot
 // run is refused with cudaErrorInvalidValue.
-extern "C" int passport_epilogue_f32(
-    const float* y, const float* key_out, const float* skey_out,
-    const float* mean, const float* var, float* out, float* scale, float* bias,
-    int n, int c, int hw, int tile_c, int tile_rows, int threads, int gap_len,
-    int smem_bytes, int vector, float eps, int relu, int device,
-    void* stream) {
+template <typename T>
+int launch(const T* y, const float* key_out, const float* skey_out,
+           const float* mean, const float* var, T* out, float* scale,
+           float* bias, int n, int c, int hw, int tile_c, int tile_rows,
+           int threads, int gap_len, int smem_bytes, int vector, float eps,
+           int relu, int device, void* stream) {
+  constexpr int kVw = 16 / static_cast<int>(sizeof(T));
   const bool bad_shape = n <= 0 || c <= 0 || hw <= 0 || tile_c <= 0 ||
                          tile_c > c || tile_rows <= 0 || gap_len <= 0 ||
                          gap_len > hw || (tile_c > 1 && gap_len != hw) ||
@@ -221,7 +278,7 @@ extern "C" int passport_epilogue_f32(
       smem_bytes > kMaxSmem ||
       smem_bytes < 4 * smem_floats(tile_c, gap_len);
   const bool bad_vector =
-      vector && (hw % 4 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
+      vector && (hw % kVw != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
                  reinterpret_cast<uintptr_t>(out) % 16 != 0);
   const long long c_tiles = (static_cast<long long>(c) + tile_c - 1) / tile_c;
   if (bad_shape || bad_block || bad_smem || bad_vector || c_tiles > 65535 ||
@@ -232,13 +289,38 @@ extern "C" int passport_epilogue_f32(
   const dim3 grid((n + tile_rows - 1) / tile_rows, c_tiles);
   const auto s = static_cast<cudaStream_t>(stream);
   if (vector) {
-    passport_epilogue_kernel<true><<<grid, threads, smem_bytes, s>>>(
+    passport_epilogue_kernel<T, true><<<grid, threads, smem_bytes, s>>>(
         y, key_out, skey_out, mean, var, out, scale, bias, n, c, hw, tile_c,
         tile_rows, gap_len, eps, relu);
   } else {
-    passport_epilogue_kernel<false><<<grid, threads, smem_bytes, s>>>(
+    passport_epilogue_kernel<T, false><<<grid, threads, smem_bytes, s>>>(
         y, key_out, skey_out, mean, var, out, scale, bias, n, c, hw, tile_c,
         tile_rows, gap_len, eps, relu);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int passport_epilogue_f32(
+    const float* y, const float* key_out, const float* skey_out,
+    const float* mean, const float* var, float* out, float* scale, float* bias,
+    int n, int c, int hw, int tile_c, int tile_rows, int threads, int gap_len,
+    int smem_bytes, int vector, float eps, int relu, int device,
+    void* stream) {
+  return launch<float>(y, key_out, skey_out, mean, var, out, scale, bias, n,
+                       c, hw, tile_c, tile_rows, threads, gap_len, smem_bytes,
+                       vector, eps, relu, device, stream);
+}
+
+extern "C" int passport_epilogue_bf16(
+    const __nv_bfloat16* y, const float* key_out, const float* skey_out,
+    const float* mean, const float* var, __nv_bfloat16* out, float* scale,
+    float* bias, int n, int c, int hw, int tile_c, int tile_rows, int threads,
+    int gap_len, int smem_bytes, int vector, float eps, int relu, int device,
+    void* stream) {
+  return launch<__nv_bfloat16>(y, key_out, skey_out, mean, var, out, scale,
+                               bias, n, c, hw, tile_c, tile_rows, threads,
+                               gap_len, smem_bytes, vector, eps, relu, device,
+                               stream);
 }

@@ -4,7 +4,9 @@ Counterpart of ``deepipr_tpu/data/device_augment.py``. The transform is the
 reference's RandomCrop(pad) + RandomHorizontalFlip + Normalize
 (dataset.py:268): zero-pad by ``pad``, crop at ``(oy, ox)`` in
 ``[0, 2*pad]``, flip the crop horizontally, then ``(x - 255*mean) /
-(255*std)``. The port emits NCHW f32, the layout its model consumes.
+(255*std)`` in f32, rounded to ``out_dtype`` (f32 or bf16) as the JAX
+package's ``astype(out_dtype)`` rounds. The port emits NCHW, the layout its
+model consumes.
 
 The draws are explicit tensors, made by ``draw_augment`` from a
 ``torch.Generator`` (the counterpart of the JAX package's
@@ -47,9 +49,10 @@ def draw_augment(generator: torch.Generator, n: int, pad: int) -> Draws:
 
 def augment_reference(images_u8: torch.Tensor, oy: torch.Tensor,
                       ox: torch.Tensor, flip: torch.Tensor, pad: int,
-                      mean255: torch.Tensor, std255: torch.Tensor
-                      ) -> torch.Tensor:
-    """(B, H, W, C) uint8 -> (B, C, H, W) f32: pad, crop, flip, normalize."""
+                      mean255: torch.Tensor, std255: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, H, W, C) uint8 -> (B, C, H, W) ``out_dtype``: pad, crop, flip,
+    normalize in f32, then round."""
     b, h, w, _ = images_u8.shape
     x = F.pad(images_u8.to(torch.float32), (0, 0, pad, pad, pad, pad))
     dev = x.device
@@ -58,24 +61,27 @@ def augment_reference(images_u8: torch.Tensor, oy: torch.Tensor,
     x = x[torch.arange(b, device=dev)[:, None, None], rows[:, :, None],
           cols[:, None, :]]
     x = torch.where(flip.bool()[:, None, None, None], x.flip(2), x)
-    return ((x - mean255) / std255).permute(0, 3, 1, 2).contiguous()
+    return ((x - mean255) / std255).to(out_dtype).permute(0, 3, 1, 2) \
+        .contiguous()
 
 
-def make_device_augment(pad: int, mean=IMAGENET_MEAN, std=IMAGENET_STD):
-    """augment(draws, images_u8) -> normalized NCHW f32 batch, the plain
-    version (``images_u8`` is (B, H, W, C) uint8, ``draws`` from
+def make_device_augment(pad: int, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                        out_dtype: torch.dtype = torch.float32):
+    """augment(draws, images_u8) -> normalized NCHW ``out_dtype`` batch, the
+    plain version (``images_u8`` is (B, H, W, C) uint8, ``draws`` from
     ``draw_augment``). pad=0 degrades to flip + normalize."""
 
     def augment(draws: Draws, images_u8: torch.Tensor) -> torch.Tensor:
         m, s = scaled_stats(mean, std, images_u8.device)
-        return augment_reference(images_u8, *draws, pad, m, s)
+        return augment_reference(images_u8, *draws, pad, m, s, out_dtype)
 
     return augment
 
 
-def normalize_device(images_u8: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) uint8 -> (B, C, H, W) f32, normalized, no augmentation
-    (the V3 trigger batch's transform)."""
+def normalize_device(images_u8: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, H, W, C) uint8 -> (B, C, H, W) ``out_dtype``, normalized in f32,
+    no augmentation (the V3 trigger batch's transform)."""
     m, s = scaled_stats(device=images_u8.device)
-    return ((images_u8.to(torch.float32) - m) / s).permute(0, 3, 1, 2) \
-        .contiguous()
+    return ((images_u8.to(torch.float32) - m) / s).to(out_dtype) \
+        .permute(0, 3, 1, 2).contiguous()

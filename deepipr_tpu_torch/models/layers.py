@@ -14,6 +14,11 @@ models/layers/conv2d.py, passportconv2d.py, passportconv2d_private.py).
   (ops/passport_epilogue.py), as ``layers.py:164-176`` of the JAX package
   does. Train mode (batch-statistic BN) and GN/IN/none take the plain path:
   norm, derived affine, ReLU, as there.
+- ``dtype`` (None or torch.bfloat16) is the compute dtype, as in JAX: the
+  convolution and the normalize path run in it and the block returns it;
+  weights, BN statistics, passports and signatures stay f32, and the
+  derived or learned scale/bias is cast to the activations' dtype just
+  before the affine (``layers.py:88-98, 181-184, 229-232, 308-311``).
 """
 
 from __future__ import annotations
@@ -39,8 +44,13 @@ Aux = Optional[Dict[str, object]]
 
 def _affine(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             relu: bool) -> torch.Tensor:
-    y = scale.view(1, -1, 1, 1) * y + bias.view(1, -1, 1, 1)
+    y = (scale.to(y.dtype).view(1, -1, 1, 1) * y
+         + bias.to(y.dtype).view(1, -1, 1, 1))
     return F.relu(y) if relu else y
+
+
+def _out(y: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return y if dtype is None else y.to(dtype)
 
 
 class ConvBlock(nn.Module):
@@ -51,16 +61,17 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  strides: int = 1, padding: int = 1, norm_type: str = "bn",
-                 relu: bool = True):
+                 relu: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.relu = relu
+        self.dtype = dtype
         self.conv = Conv2D(in_channels, features, kernel_size, strides,
-                           padding, use_bias=norm_type == "none")
+                           padding, use_bias=norm_type == "none", dtype=dtype)
         self.bn = make_norm(norm_type, features)
 
     def forward(self, x, ind: int = 0, force_passport: bool = False):
         y = apply_norm(self.bn, self.conv(x))
-        return (F.relu(y) if self.relu else y), None
+        return _out(F.relu(y) if self.relu else y, self.dtype), None
 
 
 class _PassportBase(nn.Module):
@@ -74,15 +85,16 @@ class _PassportBase(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  strides: int, padding: int, key_type: str, alpha: float,
                  b_spec: Union[None, int, str], relu: bool,
-                 input_hw: Tuple[int, int]):
+                 input_hw: Tuple[int, int], dtype: Optional[torch.dtype]):
         super().__init__()
         self.features = features
         self.key_type = key_type
         self.alpha = alpha
         self.b_spec = b_spec
         self.relu = relu
+        self.dtype = dtype
         self.conv = Conv2D(in_channels, features, kernel_size, strides,
-                           padding, use_bias=False)
+                           padding, use_bias=False, dtype=dtype)
         self.register_buffer("key", torch.zeros(1, in_channels, *input_hw))
         self.register_buffer("skey", torch.zeros(1, in_channels, *input_hw))
         self.register_buffer("b", torch.ones(features))
@@ -100,6 +112,7 @@ class _PassportBase(nn.Module):
             scale = gap_channel_mean(skey_out)
             bias = gap_channel_mean(key_out)
             y = _affine(apply_norm(norm, y), scale, bias, self.relu)
+        y = _out(y, self.dtype)
         if self.alpha == 0:
             return y, None
         return y, {"scale": scale, "bias": bias, "b": self.b,
@@ -120,9 +133,10 @@ class PassportBlock(_PassportBase):
                  key_type: str = "random", alpha: float = 1.0,
                  b_spec: Union[None, int, str] = None, relu: bool = True,
                  learnable_affine: bool = False,
-                 input_hw: Tuple[int, int] = (32, 32)):
+                 input_hw: Tuple[int, int] = (32, 32),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, features, kernel_size, strides, padding,
-                         key_type, alpha, b_spec, relu, input_hw)
+                         key_type, alpha, b_spec, relu, input_hw, dtype)
         self.learnable_affine = learnable_affine
         self.bn = make_norm(norm_type, features, affine=False)
         if learnable_affine:
@@ -132,7 +146,8 @@ class PassportBlock(_PassportBase):
     def forward(self, x, ind: int = 0, force_passport: bool = False):
         if self.learnable_affine and not force_passport:
             y = apply_norm(self.bn, self.conv(x))
-            return _affine(y, self.scale, self.bias, self.relu), None
+            return _out(_affine(y, self.scale, self.bias, self.relu),
+                        self.dtype), None
         return self._derived_affine_forward(x, self.bn)
 
 
@@ -152,9 +167,10 @@ class PassportPrivateBlock(_PassportBase):
                  key_type: str = "random", alpha: float = 1.0,
                  b_spec: Union[None, int, str] = None,
                  separate_stats: bool = False, relu: bool = True,
-                 input_hw: Tuple[int, int] = (32, 32)):
+                 input_hw: Tuple[int, int] = (32, 32),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, features, kernel_size, strides, padding,
-                         key_type, alpha, b_spec, relu, input_hw)
+                         key_type, alpha, b_spec, relu, input_hw, dtype)
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.bn = make_norm(norm_type, features, affine=False)
@@ -165,7 +181,8 @@ class PassportPrivateBlock(_PassportBase):
     def forward(self, x, ind: int = 0, force_passport: bool = False):
         if ind == 0 and not force_passport:
             y = apply_norm(self.bn, self.conv(x))
-            return _affine(y, self.scale, self.bias, self.relu), None
+            return _out(_affine(y, self.scale, self.bias, self.relu),
+                        self.dtype), None
         norm = self.bn if self.bn_private is None else self.bn_private
         return self._derived_affine_forward(x, norm)
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
+
 from deepipr_tpu_torch.models.resnet import ResNet9, ResNet18
 from deepipr_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -36,15 +38,20 @@ def build_model(
     imagenet: bool = False,
     input_size: int = 32,
     seed: int = 0,
+    dtype: Optional[torch.dtype] = None,
     device: DeviceLike = "cuda",
 ):
     """Normal (passport_kwargs=None), V1 passport or V2/V3 private model,
-    with random weights from ``seed``, in eval mode on ``device``."""
+    with random weights from ``seed``, in eval mode on ``device``.
+    ``dtype`` (None or torch.bfloat16) is the compute dtype; the weights
+    stay f32 (``registry.py:31`` of the JAX package)."""
     dev = resolve_device(device)
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"dtype must be None or torch.bfloat16, got {dtype}")
     if arch in _LATER:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 5: "
-            "AlexNet, Bottleneck, bf16)")
+            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 4: "
+            "AlexNet, Bottleneck)")
     if arch in ("resnet", "resnet18"):
         make = ResNet18
     elif arch == "resnet9":
@@ -53,5 +60,6 @@ def build_model(
         raise ValueError(f"unknown arch: {arch} (choose from {ARCHS})")
     model = make(num_classes=num_classes, norm_type=norm_type,
                  passport_kwargs=passport_kwargs, private=private,
-                 imagenet=imagenet, input_size=input_size, seed=seed)
+                 imagenet=imagenet, input_size=input_size, seed=seed,
+                 dtype=dtype)
     return model.to(dev)

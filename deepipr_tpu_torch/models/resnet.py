@@ -13,7 +13,10 @@ resnet_passport_private.py), quirks included:
 
 Module names follow the JAX module paths (``layer4_0.convbnrelu_1``), so a
 JAX variable tree maps onto the state dict by path (interop/jax_params.py).
-Bottleneck and ResNet34/50 are a later slice.
+``dtype`` (None or torch.bfloat16) is every block's compute dtype; the
+global average pool returns f32 and the ``linear`` head runs in f32, so
+logits and losses are f32 (``resnet.py:237-238``). Bottleneck and
+ResNet34/50 are a later slice.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ def _out_hw(hw: Tuple[int, int], k: int, s: int, p: int) -> Tuple[int, int]:
 
 def _make_block(layer_kwargs: Optional[Dict[str, Any]], norm_type: str,
                 in_channels: int, features: int, k: int, s: int, p: int,
-                private: bool, relu: bool, input_hw: Tuple[int, int]):
+                private: bool, relu: bool, input_hw: Tuple[int, int],
+                dtype: Optional[torch.dtype]):
     if layer_kwargs is not None and layer_kwargs["flag"]:
         common = dict(
             in_channels=in_channels,
@@ -63,6 +67,7 @@ def _make_block(layer_kwargs: Optional[Dict[str, Any]], norm_type: str,
             b_spec=layer_kwargs.get("b"),
             relu=relu,
             input_hw=input_hw,
+            dtype=dtype,
         )
         if private:
             return PassportPrivateBlock(
@@ -72,7 +77,8 @@ def _make_block(layer_kwargs: Optional[Dict[str, Any]], norm_type: str,
             learnable_affine=layer_kwargs.get("learnable_affine", False),
             **common)
     nt = layer_kwargs["norm_type"] if layer_kwargs is not None else norm_type
-    return ConvBlock(in_channels, features, k, s, p, norm_type=nt, relu=relu)
+    return ConvBlock(in_channels, features, k, s, p, norm_type=nt, relu=relu,
+                     dtype=dtype)
 
 
 class BasicBlock(nn.Module):
@@ -84,7 +90,8 @@ class BasicBlock(nn.Module):
                  norm_type: str = "bn",
                  passport_kwargs: Optional[Dict[str, Any]] = None,
                  private: bool = False,
-                 input_hw: Tuple[int, int] = (32, 32)):
+                 input_hw: Tuple[int, int] = (32, 32),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
 
         def sub(name):
@@ -94,14 +101,15 @@ class BasicBlock(nn.Module):
         self.output_hw = mid_hw
         self.convbnrelu_1 = _make_block(sub("convbnrelu_1"), norm_type,
                                         in_planes, planes, 3, stride, 1,
-                                        private, True, input_hw)
+                                        private, True, input_hw, dtype)
         self.convbn_2 = _make_block(sub("convbn_2"), norm_type, planes,
-                                    planes, 3, 1, 1, private, True, mid_hw)
+                                    planes, 3, 1, 1, private, True, mid_hw,
+                                    dtype)
         self.shortcut = None
         if stride != 1 or in_planes != self.expansion * planes:
             self.shortcut = _make_block(sub("shortcut"), norm_type, in_planes,
                                         self.expansion * planes, 1, stride, 0,
-                                        private, True, input_hw)
+                                        private, True, input_hw, dtype)
 
     def forward(self, x, ind: int = 0, force_passport: bool = False):
         aux = {}
@@ -119,19 +127,22 @@ class ResNet(nn.Module):
     """Generic ResNet; passport_kwargs=None gives the normal model.
 
     ``input_size`` is the image side the passports are shaped for (32 for
-    CIFAR); ``seed`` seeds the random weights (layers.init_weights).
+    CIFAR); ``seed`` seeds the random weights (layers.init_weights);
+    ``dtype`` is the blocks' compute dtype (None: f32).
     """
 
     def __init__(self, block_cls: type, num_blocks: Sequence[int],
                  num_classes: int = 10, norm_type: str = "bn",
                  passport_kwargs: Optional[Dict[str, Any]] = None,
                  private: bool = False, imagenet: bool = False,
-                 input_size: int = 32, seed: int = 0):
+                 input_size: int = 32, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_blocks = tuple(num_blocks)
         self.num_classes = num_classes
         self.passport_kwargs = passport_kwargs
         self.private = private
+        self.dtype = dtype
         self.is_imagenet = imagenet or num_classes == 1000
         pk = passport_kwargs
 
@@ -139,7 +150,7 @@ class ResNet(nn.Module):
         stem_kwargs = None if pk is None else pk["convbnrelu_1"]
         k, s, p = (7, 2, 3) if self.is_imagenet else (3, 1, 1)
         self.convbnrelu_1 = _make_block(stem_kwargs, norm_type, 3, 64, k, s,
-                                        p, private, True, hw)
+                                        p, private, True, hw, dtype)
         hw = _out_hw(hw, k, s, p)
         if self.is_imagenet:
             hw = _out_hw(hw, 3, 2, 1)
@@ -155,7 +166,7 @@ class ResNet(nn.Module):
                 blk = block_cls(
                     in_planes, planes, st, norm_type,
                     None if layer_pk is None else layer_pk[str(bi)],
-                    private, hw,
+                    private, hw, dtype,
                 )
                 self.add_module(name, blk)
                 self.unit_names.append(name)
@@ -199,11 +210,12 @@ class ResNet(nn.Module):
 
 def _factory(block_cls, num_blocks):
     def make(num_classes=10, norm_type="bn", passport_kwargs=None,
-             private=False, imagenet=False, input_size=32, seed=0):
+             private=False, imagenet=False, input_size=32, seed=0,
+             dtype=None):
         return ResNet(block_cls, num_blocks, num_classes=num_classes,
                       norm_type=norm_type, passport_kwargs=passport_kwargs,
                       private=private, imagenet=imagenet,
-                      input_size=input_size, seed=seed)
+                      input_size=input_size, seed=seed, dtype=dtype)
 
     return make
 
@@ -213,7 +225,8 @@ ResNet18 = _factory(BasicBlock, (2, 2, 2, 2))
 
 
 def ResNet18Private(num_classes=10, passport_kwargs=None, norm_type="bn",
-                    imagenet=False, input_size=32, seed=0):
+                    imagenet=False, input_size=32, seed=0, dtype=None):
     return ResNet18(num_classes=num_classes, norm_type=norm_type,
                     passport_kwargs=passport_kwargs, private=True,
-                    imagenet=imagenet, input_size=input_size, seed=seed)
+                    imagenet=imagenet, input_size=input_size, seed=seed,
+                    dtype=dtype)

@@ -1,8 +1,9 @@
 """Conv2D: NCHW convolution with an OIHW weight and a compute dtype.
 
 Counterpart of ``deepipr_tpu/ops/conv.py``. The input and weight are cast to
-the compute dtype (None keeps the input's), and the output stays in it; the
-calling block works in f32 after the conv. Only f32 runs in this slice.
+the compute dtype (None keeps the input's) and the output is in it; the f32
+weight stays the master copy. A bias (norm type 'none' only) is added after
+the convolution in f32, as there, which promotes a bf16 output to f32.
 """
 
 from __future__ import annotations
@@ -30,6 +31,6 @@ class Conv2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         compute = self.dtype or x.dtype
-        bias = None if self.bias is None else self.bias.to(compute)
-        return F.conv2d(x.to(compute), self.weight.to(compute), bias,
-                        stride=self.strides, padding=self.padding)
+        out = F.conv2d(x.to(compute), self.weight.to(compute),
+                       stride=self.strides, padding=self.padding)
+        return out if self.bias is None else out + self.bias.view(1, -1, 1, 1)

@@ -14,6 +14,11 @@ Train-mode BN holds to the JAX package's (flax's) conventions:
   ``nn.BatchNorm2d`` stores the unbiased one);
 - W2: the running-stat EMA is ``running = 0.9*running + 0.1*batch``
   (flax momentum 0.9, torch's momentum 0.1). Epsilon is 1e-5.
+
+Under bf16 (flax's ``BatchNorm(dtype=bf16)`` and ``GroupNorm(dtype=bf16)``)
+a norm takes the block's bf16 activations and returns bf16: statistics,
+running buffers and affine parameters stay f32, and the normalize runs in
+f32 and is rounded once.
 """
 
 from __future__ import annotations
@@ -48,6 +53,12 @@ class BatchNorm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(features))
         else:
             self.weight = self.bias = None
+            # an f32 identity affine for bf16 inputs: with f32 parameters
+            # F.batch_norm normalizes a bf16 input in f32 and rounds once
+            self.register_buffer("unit_weight", torch.ones(features),
+                                 persistent=False)
+            self.register_buffer("unit_bias", torch.zeros(features),
+                                 persistent=False)
 
     def running_stats(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, var), for consumers that fuse the normalize (the epilogue);
@@ -58,18 +69,21 @@ class BatchNorm(nn.Module):
         return self.running_mean, self.running_var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if weight is None and x.dtype != torch.float32:
+            weight, bias = self.unit_weight, self.unit_bias
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                weight, bias, False, 0.0, self.eps)
         # the running buffers stay out of F.batch_norm, which would store the
-        # unbiased variance (W1)
+        # unbiased variance (W1); the statistics are taken in f32
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3),
+                                       correction=0)
             for buf, batch in ((self.running_mean, mean),
                                (self.running_var, var)):
                 buf.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
 
 
 class GroupNorm(nn.Module):
@@ -87,8 +101,8 @@ class GroupNorm(nn.Module):
             self.weight = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x, self.num_groups, self.weight, self.bias,
-                            self.eps)
+        return F.group_norm(x.to(torch.float32), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
 
 
 def make_norm(norm_type: str, features: int,

@@ -7,7 +7,9 @@ semantics (models/layers/passportconv2d.py:142-175):
     bias_c  = mean_batch(mean_spatial(conv(key)[:, c]))
 
 The input, key and skey share one convolution kernel, so the three
-convolutions run as one over the rows ``[x; key; skey]``.
+convolutions run as one over the rows ``[x; key; skey]``. Under bf16 the
+passports are cast to ``x.dtype`` for that convolution and their outputs
+back to f32, so the GAP and the derived scale/bias are f32 (W5).
 """
 
 from __future__ import annotations

@@ -54,6 +54,7 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
                         split_branches: bool = True, remat: str = "none",
                         wm_batch: int = 2, seed: int = 0,
                         draws: Optional[DrawFn] = None,
+                        out_dtype: torch.dtype = torch.float32,
                         device: DeviceLike = "cuda"):
     """Build epoch_fn(state, images_u8, labels, epoch_key[, wm_images_u8,
     wm_labels], perm=None, wm_perm=None) -> (state, mean_metrics).
@@ -63,13 +64,14 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
     ``epoch_key`` on the device, the trigger set's from (epoch_key, 1);
     ``perm``/``wm_perm`` replace them (tests inject JAX's). Each step takes
     the next ``wm_batch`` triggers round-robin. ``draws``: the per-step
-    augmentation draws, as in ``make_train_step``. ``mean_metrics``: each
-    step metric averaged over the epoch, as device tensors.
+    augmentation draws, and ``out_dtype`` the dtype K1 writes, as in
+    ``make_train_step``. ``mean_metrics``: each step metric averaged over
+    the epoch, as device tensors.
     """
     dev = resolve_device(device)
     step_fn = make_train_step(model, private, split_branches=split_branches,
                               pad=pad, remat=remat, seed=seed, draws=draws,
-                              device=dev)
+                              out_dtype=out_dtype, device=dev)
 
     def epoch_fn(state: TrainState, images_u8: torch.Tensor,
                  labels: torch.Tensor, epoch_key: int,

@@ -97,6 +97,7 @@ def _bn_buffers(modules) -> List[torch.Tensor]:
 def make_train_step(model, private: bool, split_branches: bool = True,
                     pad: Optional[int] = None, remat: str = "none",
                     seed: int = 0, draws: Optional[DrawFn] = None,
+                    out_dtype: torch.dtype = torch.float32,
                     device: DeviceLike = "cuda"):
     """Build the SGD train step for this model and scheme.
 
@@ -110,11 +111,14 @@ def make_train_step(model, private: bool, split_branches: bool = True,
     it is raw uint8 NHWC, either the batch or, with ``batch["index"]``, the
     set the batch's rows are gathered from; kernel K1
     (ops/fused_augment.py) gathers, pads by ``pad``, crops, flips and
-    normalizes in one launch. Its draws come from ``draws(state.step, n)``,
-    by default ``seeded_draws(seed, pad, device)``; tests inject JAX's. V3:
-    ``batch["wm_image"]`` (uint8) is normalized only and appended, with
+    normalizes in one launch, writing ``out_dtype`` (f32, or bf16 for a
+    bf16 model, the JAX epoch's ``out_dtype``). Its draws come from
+    ``draws(state.step, n)``, by default ``seeded_draws(seed, pad,
+    device)``; tests inject JAX's. V3: ``batch["wm_image"]`` (uint8) is
+    normalized only, in the same dtype, and appended, with
     ``batch["wm_label"]``. ``batch["weight"]``: optional per-sample loss
-    weights.
+    weights. The loss, the sign loss and the metrics are f32 whatever the
+    model's dtype.
 
     split_branches (private models): the public and private forwards agree
     up to the first passport block, so the shared prefix runs once and the
@@ -152,10 +156,11 @@ def make_train_step(model, private: bool, split_branches: bool = True,
             index = torch.arange(images.shape[0], device=dev)
         index = torch.as_tensor(index, device=dev).to(torch.int32)
         oy, ox, flip = draws(state.step, index.shape[0])
-        x = fused_augment(images, index, oy, ox, flip, mean255, std255, pad)
+        x = fused_augment(images, index, oy, ox, flip, mean255, std255, pad,
+                          out_dtype)
         if "wm_image" in batch:
             wm = torch.as_tensor(batch["wm_image"], device=dev).contiguous()
-            x = torch.cat([x, normalize_device(wm)])
+            x = torch.cat([x, normalize_device(wm, x.dtype)])
             y = torch.cat([y, torch.as_tensor(batch["wm_label"],
                                               device=dev).long()])
         return x, y

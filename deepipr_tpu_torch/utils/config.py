@@ -59,3 +59,15 @@ def construct_passport_kwargs(
 def load_passport_config(path: str) -> Dict[str, Any]:
     with open(path) as f:
         return json.load(f)
+
+
+def mark_separate_stats(kwargs: Dict[str, Any]) -> None:
+    """Flag every passport layer's kwargs, in place, for per-branch BN
+    statistics (``separate_stats``, the DeepIPR variant beyond the
+    reference's shared affine-free norm), as ``--separate-stats`` asks."""
+    for v in kwargs.values():
+        if isinstance(v, dict) and "flag" in v:
+            if v["flag"]:
+                v["separate_stats"] = True
+        elif isinstance(v, dict):
+            mark_separate_stats(v)

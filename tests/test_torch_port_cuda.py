@@ -141,6 +141,61 @@ def test_epilogue_rejects_mixed_devices(cuda):
         passport_epilogue(y, k, k, torch.zeros(8), torch.ones(8))
 
 
+def bf16_ulps(a, b) -> int:
+    """The largest distance between two bf16 tensors in bf16 units in the
+    last place, on a monotone line of their bit patterns."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+# the bf16 form: the main shapes, H*W = 49 (the scalar path), a ragged tile,
+# H*W = 4 (not a multiple of 8: the scalar path), and y or out off 16-byte
+# alignment
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main", "batch1", "hw49", "ragged_tile",
+                                  "hw4", "misaligned_y", "misaligned_out"])
+def test_epilogue_bf16_kernel_matches_plain_version(cuda, case):
+    shape = {"main": (256, 512, 4, 4), "batch1": (1, 512, 4, 4),
+             "hw49": (8, 512, 7, 7), "ragged_tile": (3, 40, 5, 3),
+             "hw4": (4, 128, 2, 2)}.get(case, (16, 512, 4, 4))
+    args = _epilogue_args(shape, cuda, seed=3)
+    args[0] = args[0].to(torch.bfloat16)
+    if case == "misaligned_y":
+        args[0] = _misaligned(args[0])
+    n, c, h, w = shape
+    geo = epilogue_geometry(n, c, h * w, args[0].data_ptr(), 0, itemsize=2)
+    assert geo.vector == (case in ("main", "batch1", "misaligned_out"))
+    for relu in (True, False):
+        before = passport_epilogue.launches
+        got = passport_epilogue(*args, relu=relu)
+        torch.cuda.synchronize()
+        assert passport_epilogue.launches == before + 1
+        want = passport_epilogue_reference(*args, relu=relu)
+        assert got[0].dtype == torch.bfloat16
+        assert bf16_ulps(got[0], want[0]) <= 1
+        for g_, w_ in zip(got[1:], want[1:]):
+            assert g_.dtype == torch.float32
+            torch.testing.assert_close(g_, w_, rtol=0, atol=1e-6)
+    # scale and bias equal the f32 form's on the same passport outputs
+    f32 = passport_epilogue(args[0].float().contiguous(), *args[1:])
+    for g_, w_ in zip(got[1:], f32[1:]):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.cuda
+def test_epilogue_bf16_kernel_is_deterministic(cuda):
+    args = _epilogue_args((256, 512, 4, 4), cuda, seed=4)
+    args[0] = args[0].to(torch.bfloat16)
+    first = passport_epilogue(*args)
+    second = passport_epilogue(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------------------ K1
 
 @pytest.fixture(scope="module")
@@ -196,6 +251,45 @@ def test_augment_kernel_matches_plain_version(cuda, sets, case):
             assert torch.equal(got, want)
         else:  # tests/test_pallas_augment.py's tolerance
             torch.testing.assert_close(got, want, rtol=0, atol=3e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(AUGMENT_CASES))
+def test_augment_bf16_kernel_matches_plain_version_bit_for_bit(cuda, sets,
+                                                               case):
+    side, b, pad, extreme = AUGMENT_CASES[case]
+    ds = sets[side].to(cuda)
+    gen = torch.Generator().manual_seed(b + 1)
+    idx = torch.randperm(ds.shape[0], generator=gen)[:b].int().to(cuda)
+    draws = _extremes(pad) if extreme else draw_augment(gen, b, pad)
+    draws = tuple(t.to(cuda) for t in draws)
+    stats = scaled_stats(device=cuda)
+    before = fused_augment.launches
+    got = fused_augment(ds, idx, *draws, *stats, pad, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_augment.launches == before + 1
+    want = augment_reference(ds[idx.long()], *draws, pad, *stats,
+                             torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 3, side, side)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_augment_bf16_kernel_misaligned_set(cuda, sets):
+    """A set one byte past a 16-byte boundary takes the byte copies (the
+    15x15 cases above take the scalar stores); bit for bit all the same."""
+    ds = sets[32][:64]
+    flat = torch.zeros(ds.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(ds.shape)
+    shifted.copy_(ds.to(cuda))
+    gen = torch.Generator().manual_seed(5)
+    idx = torch.randperm(64, generator=gen)[:13].int().to(cuda)
+    draws = tuple(t.to(cuda) for t in draw_augment(gen, 13, 4))
+    stats = scaled_stats(device=cuda)
+    got = fused_augment(shifted, idx, *draws, *stats, 4, torch.bfloat16)
+    want = augment_reference(shifted[idx.long()], *draws, 4, *stats,
+                             torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.cuda

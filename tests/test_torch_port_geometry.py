@@ -39,6 +39,11 @@ MAX_GRID_X, MAX_GRID_Y, MAX_BLOCK = 2**31 - 1, 65535, 1024
 POINTERS = {"aligned": (0x7F0000000000, 0x7F0000100000),
             "input_off": (0x7F0000000004, 0x7F0000100000),
             "output_off": (0x7F0000000000, 0x7F0000100004)}
+# bf16 outputs and y: also 2 and 8 bytes off a 16-byte boundary
+POINTERS_BF16 = {**POINTERS,
+                 "input_off2": (0x7F0000000002, 0x7F0000100000),
+                 "output_off2": (0x7F0000000000, 0x7F0000100002),
+                 "output_off8": (0x7F0000000000, 0x7F0000100008)}
 
 
 def _constant(source: str, name: str) -> int:
@@ -67,7 +72,7 @@ EPILOGUE_SHAPES = sorted(set(SMOKE.CHECK_SHAPES) | {
 def _walk_epilogue(n, c, hw, geo):
     """Count how often the kernel's loops write each element of out, stage
     each passport element, and write each scale/bias entry."""
-    vw = 4 if geo.vector else 1
+    vw = 16 // geo.itemsize if geo.vector else 1
     written = np.zeros(n * c * hw, np.int32)
     staged = np.zeros(c * hw, np.int32)
     coefficients = np.zeros(c, np.int32)
@@ -129,6 +134,36 @@ def test_epilogue_geometry_paths_and_limits(shape, pointers):
         geo.tile_rows == 1
 
 
+@pytest.mark.parametrize("pointers", sorted(POINTERS_BF16))
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_epilogue_geometry_bf16_covers_every_plane_once(shape, pointers):
+    """The bf16 form: 8 elements per 16-byte vector, at least one thread per
+    STAGE passport floats, the same limits."""
+    n, c, h, w = shape
+    y_ptr, out_ptr = POINTERS_BF16[pointers]
+    geo = k2.epilogue_geometry(n, c, h * w, y_ptr, out_ptr, itemsize=2)
+    assert geo.itemsize == 2
+    assert geo.vector == ((h * w) % 8 == 0 and y_ptr % 16 == 0
+                          and out_ptr % 16 == 0)
+    assert 32 <= geo.threads <= min(k2.MAX_THREADS, MAX_BLOCK)
+    assert geo.threads % 32 == 0 and geo.smem_bytes <= k2.MAX_SMEM
+    assert 1 <= geo.grid[0] <= MAX_GRID_X and 1 <= geo.grid[1] <= MAX_GRID_Y
+    written, staged, coefficients = _walk_epilogue(n, c, h * w, geo)
+    assert (written == 1).all()
+    assert (staged == 1).all()
+    assert (coefficients == 1).all()
+
+
+def test_epilogue_geometry_bf16_at_the_main_shape():
+    """(256, 512, 4, 4) in bf16: the same 32-channel tiles (1 KB a row), 64
+    threads of 8 elements, 128 threads for the 512 passport floats."""
+    geo = k2.epilogue_geometry(256, 512, 16, *POINTERS["aligned"],
+                               itemsize=2)
+    assert geo == k2.EpilogueGeometry(
+        grid=(32, 16), threads=128, tile_c=32, tile_rows=8, gap_len=16,
+        smem_bytes=4608, vector=True, itemsize=2)
+
+
 def test_epilogue_geometry_at_the_main_shape():
     """The serving path's (256, 512, 4, 4): 32-channel spans of 2 KB, one
     float4 a thread, 8 rows in flight, 16 x 32 = 512 blocks."""
@@ -146,7 +181,7 @@ AUGMENT_SHAPES = sorted({(b, s[1], s[2], s[3])
     (4, 8, 8, 16), (1, 1, 1, 1), (2, 100, 400, 3)})
 
 
-def _walk_augment(b, h, w, c, geo):
+def _walk_augment(b, h, w, c, geo):  # 4 x a store in either dtype
     """Count how often the kernel's loops write each output element, and
     check that every source row a tile reads lies in its staging area."""
     vw = 4 if geo.vector_store else 1
@@ -196,6 +231,19 @@ def test_augment_geometry_paths_and_limits(shape, pointers):
     # an image whose bytes fit beside the statistics is one tile: one block
     if -(-8 * c // 16) * 16 + h * w * c <= k1.MAX_SMEM:
         assert geo.grid[1] == 1
+
+
+@pytest.mark.parametrize("pointers", sorted(POINTERS_BF16))
+@pytest.mark.parametrize("shape", AUGMENT_SHAPES)
+def test_augment_geometry_bf16(shape, pointers):
+    """The bf16 output: stores of 4 bf16 need 8-byte alignment."""
+    b, h, w, c = shape
+    set_ptr, out_ptr = POINTERS_BF16[pointers]
+    geo = k1.augment_geometry(b, h, w, c, set_ptr, out_ptr, itemsize=2)
+    assert geo.vector_store == (w % 4 == 0 and out_ptr % 8 == 0)
+    assert geo.vector_load == ((w * c) % 16 == 0 and set_ptr % 16 == 0)
+    assert geo.smem_bytes <= k1.MAX_SMEM
+    assert (_walk_augment(*shape, geo) == 1).all()
 
 
 def test_augment_geometry_at_the_training_batch():

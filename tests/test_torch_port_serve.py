@@ -259,6 +259,10 @@ def test_port_imports_no_jax():
         "deepipr_tpu_torch." + ".".join(p.relative_to(PORT_DIR).with_suffix("")
                                         .parts).replace(".__init__", "")
         for p in PORT_DIR.rglob("*.py"))
+    # the entry points and what they run are among them
+    assert {"deepipr_tpu_torch.cli.train_v1", "deepipr_tpu_torch.cli.train_v23",
+            "deepipr_tpu_torch.train.experiment",
+            "deepipr_tpu_torch.utils.checkpoint"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -277,6 +281,7 @@ def test_port_sources_name_no_jax_import():
         r"|\bfrom deepipr_tpu\.|\bimport deepipr_tpu\b", re.M)
     files = list(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"]
     assert len(files) > 20
+    assert PORT_DIR / "cli" / "train_v23.py" in files
     hits = [(f.name, m.group(0)) for f in files
             for m in pattern.finditer(f.read_text())]
     assert not hits
