@@ -12,10 +12,10 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    fails the run) and, where the toolkit has cuobjdump, its SASS size.
 3. Kernels: each kernel's f32 and bf16 forms against their plain PyTorch
    versions on the card, at the main paths' shapes, the JAX package's test
-   shapes and ragged ones (its vector and scalar paths), K2 twice for
-   bit-identical results; then timed beside the plain version, a library
-   yardstick where one exists, the memory bound, the event timer's own
-   floor and the CUPTI duration.
+   shapes and ragged ones (its vector and scalar paths), K2 and its
+   gradient K2-bwd twice for bit-identical results; then timed beside the
+   plain version, a library yardstick where one exists, the memory bound,
+   the event timer's own floor and the CUPTI duration.
 4. Serving, in f32 and then in bf16: ResNet18Private at CIFAR-10 width with
    passport_configs/resnet18_passport.json, random weights, passports and BN
    statistics from ``--seed``. The serving path runs through the public
@@ -40,6 +40,13 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    K2 bf16 in each epoch's validation and signature detection); then
    ``--eval`` of that run, ``verify_ownership`` of its best.ckpt loaded into
    a fresh model, and one V3 epoch. Logdirs under ``build/``.
+8. The attack suite, in-process, on that V2 run's best.ckpt (f32): the
+   pruning and flip CLIs (11 levels), attack 1 (8 reps), attack 2, attack 3
+   host-fed and ``--epoch-scan``, and the forge attack, with launch counts
+   (K2 f32, K2-bwd, K1 f32; no bf16 form) and each attack's wall time; K2
+   and K2-bwd launches per ambiguity step; the CE and sign-loss gradient on
+   every fake passport; one ambiguity step and one forge step on the card
+   against the CPU. CSVs under ``logs/``.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
@@ -83,6 +90,14 @@ BF16 = torch.bfloat16
 # the card's model against the CPU's: convolutions accumulate in other
 # orders (tests/test_torch_export.py:102's tolerance)
 LOGITS_TOL = dict(rtol=1e-3, atol=2e-4)
+# K2-bwd: the serving shapes at the attack CLIs' batch 64 and beyond, the
+# forge attack's batch 1, 7x7 (the scalar path) and a ragged tile. dy is one
+# product of the same f32 factors as the plain version's; the per-channel
+# sums run in another order (tests/test_torch_port_cuda.py's tolerance)
+BWD_SHAPES = [(64, 512, 4, 4), MAIN_SHAPE, (1024, 512, 4, 4), (1, 512, 4, 4),
+              (8, 512, 7, 7), (3, 40, 5, 3)]
+BWD_DY_TOL = dict(rtol=1e-6, atol=0.0)
+BWD_SUM_TOL = dict(rtol=1e-4, atol=1e-4)
 # K1 normalized against its plain version: tests/test_pallas_augment.py's
 # tolerance (1 ulp); the pixels before normalizing must agree bit for bit
 AUGMENT_TOL = dict(rtol=0.0, atol=3e-7)
@@ -100,6 +115,8 @@ AUGMENT_SHAPES = [
     ("B=13 15x15 pad 2", (64, 15, 15, 3), 13, 2),
 ]
 TIMED_EPOCHS = 3
+PROFILER_ATTEMPTS = 3  # traces taken before a lost kernel record fails
+ATTACK_BATCH = 64  # the attack CLIs' default --batch-size
 # two train steps on the card against the same two on the CPU: metrics and
 # BN statistics elementwise; each parameter's update (after - before)
 # norm-wise, since a pre-ReLU value within float32 noise of zero lands on
@@ -234,32 +251,45 @@ class DeviceTimer:
         card's launch-to-event overhead around the smallest kernel."""
         return self.ms(self.one.zero_)
 
-    def profiled_ms(self, fn, kernel: str, clean: bool = False) -> float:
+    def profiled_ms(self, fn, kernel: str, clean: bool = False,
+                    per_call: int = 1) -> float:
         """Median CUPTI duration (torch.profiler) of the kernel whose name
         holds ``kernel``, over ``iters`` calls of ``fn``, the L2 flushed
         before each: the kernel alone, without the launch. The flush writes
         (as for ``ms``), which leaves the L2 full of dirty lines that the
-        kernel's traffic must write back; ``clean`` flushes by reading."""
+        kernel's traffic must write back; ``clean`` flushes by reading.
+        ``per_call``: kernels of that name a call launches (their durations
+        are added). A trace that lost kernel records (CUPTI drops some under
+        load) is taken again, up to PROFILER_ATTEMPTS times."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(self.iters):
-                if clean:
-                    self.flush.sum()
-                else:
-                    self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if len(us) != self.iters:
-            raise AssertionError(f"the profiler saw {len(us)} launches of "
-                                 f"{kernel}, expected {self.iters}")
-        return statistics.median(us) / 1e3
+        for attempt in range(1, PROFILER_ATTEMPTS + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(self.iters):
+                    if clean:
+                        self.flush.sum()
+                    else:
+                        self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA
+                             and kernel in e.name),
+                            key=lambda e: e.time_range.start)
+            if len(events) == self.iters * per_call:
+                break
+            log(f"  the profiler saw {len(events)} launches of {kernel}, "
+                f"expected {self.iters * per_call} (attempt {attempt})")
+        else:
+            raise AssertionError(f"the profiler lost launches of {kernel} "
+                                 f"in {PROFILER_ATTEMPTS} traces")
+        us = [e.time_range.elapsed_us() for e in events]
+        calls = [sum(us[i:i + per_call]) for i in range(0, len(us), per_call)]
+        return statistics.median(calls) / 1e3
 
 
 # -------------------------------------------------------------- kernels
@@ -392,6 +422,110 @@ def time_epilogue(gen, timer: DeviceTimer, shape, smi: str,
         "profiled_ms": timer.profiled_ms(lambda: passport_epilogue(*args),
                                          "passport_epilogue_kernel"),
         "plain_ms": timer.ms(lambda: passport_epilogue_reference(*args)),
+        "library_ms": timer.ms(library),
+        "bound_ms": bound[bound_by],
+        "bound_by": bound_by,
+    }
+
+
+def backward_inputs(shape, gen, relu=True):
+    """K2-bwd's inputs on the card: (g, y, out, scale, mean, var, g_scale,
+    g_bias), out and scale from K2 on the same y (the forward's own mask)."""
+    from deepipr_tpu_torch.ops.passport_epilogue import passport_epilogue
+
+    y, key_out, skey_out, mean, var = epilogue_inputs(shape, gen)
+    out, scale, _ = passport_epilogue(y, key_out, skey_out, mean, var,
+                                      relu=relu)
+    c = shape[1]
+    g = torch.randn(shape, generator=gen).cuda()
+    g_scale = torch.randn(c, generator=gen).cuda()
+    g_bias = torch.randn(c, generator=gen).cuda()
+    return [g, y, out, scale, mean, var, g_scale, g_bias]
+
+
+def check_backward(gen) -> float:
+    """K2-bwd against its plain version at BWD_SHAPES, a misaligned y, relu
+    on and off; bit-identical over two calls. dy within BWD_DY_TOL, dkey_out
+    and dskey_out within BWD_SUM_TOL. Returns the largest error."""
+    from deepipr_tpu_torch.ops.passport_epilogue import (
+        passport_epilogue_backward,
+        passport_epilogue_backward_reference,
+    )
+
+    worst, dy_exact = 0.0, True
+    cases = [(shape, shape) for shape in BWD_SHAPES]
+    cases.append(("misaligned y", MAIN_SHAPE))
+    for label, shape in cases:
+        for relu in (True, False):
+            args = backward_inputs(shape, gen, relu)
+            if label == "misaligned y":
+                args[1] = misaligned(args[1])
+            got = passport_epilogue_backward(*args, relu=relu)
+            again = passport_epilogue_backward(*args, relu=relu)
+            torch.cuda.synchronize()
+            want = passport_epilogue_backward_reference(*args, relu=relu)
+            for name, g, a, w, tol in zip(
+                    ("dy", "dkey_out", "dskey_out"), got, again, want,
+                    (BWD_DY_TOL, BWD_SUM_TOL, BWD_SUM_TOL)):
+                if not torch.equal(g, a):
+                    raise AssertionError(f"passport_epilogue_backward "
+                                         f"{label}: two calls gave "
+                                         f"different {name}")
+                torch.testing.assert_close(g, w, **tol)
+                worst = max(worst, (g - w).abs().max().item())
+            dy_exact = dy_exact and torch.equal(got[0], want[0])
+        log(f"passport_epilogue_backward {label}: agrees with the plain "
+            "version (relu on and off), bit-identical over two calls")
+    log(f"passport_epilogue_backward: dy bit for bit with the plain "
+        f"version in every case: {dy_exact}; largest error {worst}")
+    return worst
+
+
+def time_backward(gen, timer: DeviceTimer, shape, smi: str) -> dict:
+    """K2-bwd beside its plain version and the yardstick: ATen's eval-mode
+    batch-norm backward on the same shapes (dx, dweight, dbias; no ReLU
+    mask, no passport planes)."""
+    from deepipr_tpu_torch.ops.passport_epilogue import (
+        passport_epilogue_backward,
+        passport_epilogue_backward_reference,
+    )
+
+    args = backward_inputs(shape, gen)
+    g, y, out, scale, mean, var, _, _ = args
+
+    def library():
+        torch.ops.aten.native_batch_norm_backward(
+            g, y, scale, mean, var, None, None, False, 1e-5,
+            [True, True, True])
+
+    n, c, h, w = shape
+    elems = n * c * h * w
+    # g, y and out read and dy written; scale, mean, var and the two
+    # gradients of scale/bias read; dkey_out and dskey_out written
+    nbytes = 4 * (4 * elems + 5 * c + 2 * c * h * w)
+    flops = 8 * elems + 2 * c * h * w
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / F32_FLOPS_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    # a design that recomputes the mask reads g and y and writes dy only;
+    # logged beside the bound, not a number of this kernel
+    log(f"passport_epilogue_backward {shape}: bound {bound[bound_by]} ms "
+        f"by {bound_by}; a design that recomputes the mask: "
+        f"{4 * 3 * elems / HBM_BYTES_PER_S * 1e3} ms by bytes")
+
+    def kernel():
+        passport_epilogue_backward(*args)
+
+    copy = torch.empty_like(y)
+    memory_diagnostics(timer, kernel, "passport_epilogue_bwd_partial",
+                       lambda: torch.add(g, y, out=copy), "CUDAFunctor_add",
+                       f"passport_epilogue_backward {shape}", smi)
+    return {
+        "ms": timer.ms(kernel),
+        "profiled_ms": timer.profiled_ms(kernel, "passport_epilogue_bwd",
+                                         per_call=2),
+        "plain_ms": timer.ms(
+            lambda: passport_epilogue_backward_reference(*args)),
         "library_ms": timer.ms(library),
         "bound_ms": bound[bound_by],
         "bound_by": bound_by,
@@ -927,12 +1061,12 @@ def history(logdir: str) -> list:
                 for row in csv.DictReader(f)]
 
 
-def cli_path(smi: str, launches, reset) -> dict:
+def cli_path(smi: str, launches, reset):
     """The training entry point in-process, as a user runs it: scheme 0
     (train_v1), then V2 from its last.ckpt with pretrained-derived shuffle
     keys, bf16 and the device-resident epoch (train_v23), then --eval of
     that run, then its best.ckpt loaded into a fresh model and verified;
-    then one V3 epoch. Returns the V2 run's launch counts."""
+    then one V3 epoch. Returns the V2 run's launch counts and best.ckpt."""
     import shutil
 
     from deepipr_tpu_torch.cli import train_v1, train_v23
@@ -1006,7 +1140,221 @@ def cli_path(smi: str, launches, reset) -> dict:
                              f"{sorted(header)}")
     log(f"entry point: V3 bf16 --epoch-scan, 1 epoch, in "
         f"{time.perf_counter() - t:.1f} s: {history(run3.logdir)[-1]}")
+    return counts, os.path.join(run2.logdir, "models", "best.ckpt")
+
+
+# ------------------------------------------------------------ attacks
+
+def attack_argv(best: str) -> list:
+    return ["--arch", "resnet18", "--dataset", "synthetic", "--scheme", "2",
+            "--passport-config", "passport_configs/resnet18_passport.json",
+            "--loadpath", best]
+
+
+def attack_path(best: str, smi: str, launches, reset) -> dict:
+    """The six attack CLIs in-process on the card, on the V2 run's best.ckpt
+    (f32 weights in an f32 model), on that run's synthetic set (12,800
+    train, 512 validation images), batch 64. Returns the path's launch
+    counts."""
+    from deepipr_tpu_torch.cli import (
+        flip_attack,
+        passport_attack_1,
+        passport_attack_2,
+        passport_attack_3,
+        passport_forge_attack,
+        pruning_attack,
+    )
+
+    argv = attack_argv(best)
+    walls = {}
+
+    def run(name, main, *extra):
+        t = time.perf_counter()
+        # the V2 run's synthetic set: its size draws its class templates
+        out = main(argv + list(extra), synthetic_train=TRAIN_IMAGES)
+        walls[name] = time.perf_counter() - t
+        log(f"attack: {name} ({' '.join(extra) or 'defaults'}) in "
+            f"{walls[name]:.1f} s")
+        return out
+
+    reset()
+    rows = run("pruning", pruning_attack.main)
+    if len(rows) != 11 or rows[0]["detect_mean"] != 1.0:
+        raise AssertionError(f"pruning: {len(rows)} rows, detection at 0 % "
+                             f"{rows[0]['detect_mean']}")
+    log("  pruning: detection by level "
+        f"{[round(r['detect_mean'], 4) for r in rows]}, accuracy "
+        f"{[r['acc'] for r in rows]}")
+
+    rows = run("flip", flip_attack.main)
+    detect = {k: v for k, v in rows[0].items() if k.startswith("detect_")}
+    if len(rows) != 11 or any({k: r[k] for k in detect} != detect
+                              for r in rows):
+        raise AssertionError("flip: detection moved with the flipped "
+                             f"affines: {[r['detect_mean'] for r in rows]}")
+    if not rows[5]["acc"] < rows[0]["acc"]:
+        raise AssertionError(f"flip: accuracy at 50 % {rows[5]['acc']} is "
+                             f"not below 0 %'s {rows[0]['acc']}")
+    log(f"  flip: detection {rows[0]['detect_mean']} at every level; "
+        f"accuracy {[r['acc'] for r in rows]}")
+
+    rows = run("attack 1", passport_attack_1.main, "--attack-rep", "8")
+    genuine = rows[0]["valid_acc"]
+    fake = float(np.mean([r["valid_acc"] for r in rows[1:]]))
+    if rows[0]["attack_rep"] != -1 or not fake < genuine:
+        raise AssertionError(f"attack 1: fake mean {fake} vs genuine "
+                             f"{genuine}")
+    log(f"  attack 1: genuine {genuine} %, fake mean {fake:.2f} % over 8 "
+        "reps")
+
+    rows = run("attack 2", passport_attack_2.main, "--flipperc", "0.5",
+               "--epochs", "2")
+    if not all(np.isfinite(v) for r in rows for v in r.values()
+               if isinstance(v, float)):
+        raise AssertionError(f"attack 2: {rows}")
+    log(f"  attack 2: {rows[-1]}")
+
+    for extra in ([], ["--epoch-scan"]):
+        rows = run(f"attack 3{' --epoch-scan' if extra else ''}",
+                   passport_attack_3.main, "--flipperc", "0.1", "--epochs",
+                   "2", *extra)
+        if not all(np.isfinite(v) for r in rows for v in r.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"attack 3: {rows}")
+        log(f"  attack 3{' --epoch-scan' if extra else ''}: {rows[-1]}")
+
+    forged, hists = run("forge", passport_forge_attack.main, "--flippercs",
+                        "0,0.5", "--steps", "100")
+    for row, hist in zip(forged, hists):
+        if not hist[-1]["mse"] < hist[0]["mse"]:
+            raise AssertionError(f"forge {row['flipperc']}: MSE did not "
+                                 f"fall: {hist}")
+    log(f"  forge: {forged}; MSE by flip fraction "
+        f"{[[h['mse'] for h in hist] for hist in hists]}")
+    counts = launches()
+    log(f"attack-path launches: {counts}; wall times "
+        f"{ {k: round(v, 1) for k, v in walls.items()} } s [{smi}]")
+    for name in ("passport_epilogue", "passport_epilogue_backward",
+                 "fused_augment"):
+        if not counts[name]:
+            raise AssertionError(f"{name} was not launched on the attack "
+                                 f"path: {counts}")
+    if counts["passport_epilogue_bf16"] or counts["fused_augment_bf16"]:
+        raise AssertionError(f"a bf16 form ran on the f32 attack path: "
+                             f"{counts}")
     return counts
+
+
+def ambiguity_checks(best: str, launches, reset) -> float:
+    """On the V2 best.ckpt: K2 and K2-bwd launches per ambiguity step at
+    batch 64 and 256; the CE and sign-loss gradient (maximize coefficient
+    0) finite and non-zero on every fake passport, and within UPDATE_TOL of
+    its norm of the CPU's on the same weights and batch; then one ambiguity
+    step and one forge step on the card against the same steps on the CPU,
+    from the same weights and draws: metrics at TRAIN_TOL, each passport's
+    update within UPDATE_TOL of its norm. Returns the worst update error."""
+    from deepipr_tpu_torch.attacks import ambiguity, forge
+    from deepipr_tpu_torch.attacks.cli_common import load_attacked_model
+    from deepipr_tpu_torch.cli import passport_attack_3
+    from deepipr_tpu_torch.serve import passports
+
+    args = passport_attack_3.build_parser().parse_args(attack_argv(best))
+    models = {dev: load_attacked_model(args, device=dev)[0]
+              for dev in ("cpu", "cuda")}
+    images = request_batches(1, 5)[0]
+    # the attack CLIs' batch
+    parity = {k: v[:ATTACK_BATCH] for k, v in images.items()}
+    orig_cpu = {k: v.detach().clone()
+                for k, v in passports(models["cpu"]).items()}
+    gen = torch.Generator().manual_seed(6)
+    noise = {k: torch.randn(v.shape, generator=gen)
+             for k, v in orig_cpu.items()}
+    init = {k: torch.rand(v.shape, generator=gen) * 2 - 1
+            for k, v in orig_cpu.items()}
+
+    def step_inputs(dev, batch):
+        """(signature, orig, fake, x, y) on ``dev``, the same on each."""
+        orig = {k: v.to(dev) for k, v in orig_cpu.items()}
+        fake = ambiguity.initial_fakes(orig, 0.001, 0, noise)
+        signature = ambiguity.flip_signature_bits(
+            ambiguity.signatures(models[dev]), 0.1, 1)
+        x = torch.as_tensor(batch["image"]).to(dev)
+        x = x.permute(0, 3, 1, 2).contiguous()
+        y = torch.as_tensor(batch["label"]).to(dev).long()
+        return signature, orig, fake, x, y
+
+    def ambiguity_step(dev, batch, coef=ambiguity.MAXIMIZE_COEF):
+        signature, orig, fake, x, y = step_inputs(dev, batch)
+        start = {k: v.detach().clone() for k, v in fake.items()}
+        step = ambiguity.make_ambiguity_step(
+            models[dev], signature, True,
+            ambiguity.PassportOptimizer(fake, 0.01), coef)
+        metrics = step(fake, orig, x, y)
+        return ({k: (fake[k] - start[k]).cpu() for k in fake},
+                {k: v.item() for k, v in metrics.items()})
+
+    for n in (ATTACK_BATCH, REQUEST_BATCH):
+        batch = {"image": images["image"][:n], "label": images["label"][:n]}
+        reset()
+        ambiguity_step("cuda", batch)
+        counts = launches()
+        log(f"ambiguity step at batch {n}: K2 {counts['passport_epilogue']}, "
+            f"K2-bwd {counts['passport_epilogue_backward']} launches")
+        if (counts["passport_epilogue"], counts["passport_epilogue_backward"]
+                ) != (5, 5):
+            raise AssertionError(f"ambiguity step launches {counts}")
+
+    # the CE and sign-loss terms alone (the gradient that flows through
+    # K2-bwd) reach every fake passport, on the card as on the CPU
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        signature, orig, fake, x, y = step_inputs(dev, parity)
+        loss, _ = ambiguity.ambiguity_loss(models[dev], signature, True,
+                                           fake, orig, x, y, coef=0.0)
+        grads[dev] = {k: g.cpu() for k, g in zip(
+            fake, torch.autograd.grad(loss, list(fake.values())))}
+    norms = {k: g.norm().item() for k, g in grads["cuda"].items()}
+    if not all(np.isfinite(v) and v > 0 for v in norms.values()):
+        raise AssertionError(f"CE + sign loss gradients {norms}")
+    log(f"ambiguity, maximize coefficient 0: gradient norms {norms}")
+    grad_err = {k: ((g - grads["cpu"][k]).norm() / grads["cpu"][k].norm()
+                    ).item() for k, g in grads["cuda"].items()}
+    name = max(grad_err, key=grad_err.get)
+    log(f"  card vs CPU: each gradient within {UPDATE_TOL} of its norm; "
+        f"worst {grad_err[name]:.3g} at {name}")
+    if grad_err[name] > UPDATE_TOL:
+        raise AssertionError(f"CE + sign loss gradients, card vs CPU: "
+                             f"{grad_err}")
+
+    worst = {}
+    upd, met = {}, {}
+    for dev in ("cpu", "cuda"):
+        upd[dev], met[dev] = ambiguity_step(dev, parity)
+    for dev in ("cpu", "cuda"):
+        pp, _, hist = forge.forge_attack(models[dev], (1, 32, 32, 3),
+                                         flipperc=0.5, steps=1, seed=0,
+                                         log_every=1, init=init)
+        upd[f"forge {dev}"] = {k: (v.cpu() - init[k]) for k, v in pp.items()}
+        met[f"forge {dev}"] = {"mse": hist[0]["mse"]}
+    for kind in ("", "forge "):
+        cpu, gpu = met[f"{kind}cpu"], met[f"{kind}cuda"]
+        bad = [k for k, v in cpu.items()
+               if not abs(gpu[k] - v) <= TRAIN_TOL["atol"]
+               + TRAIN_TOL["rtol"] * abs(v)]
+        for k, u in upd[f"{kind}cpu"].items():
+            err = ((upd[f"{kind}cuda"][k] - u).norm() / u.norm()).item()
+            worst[f"{kind or 'ambiguity '}{k}"] = err
+            if err > UPDATE_TOL:
+                bad.append(k)
+        log(f"{kind or 'ambiguity '}step, card vs CPU: metrics {gpu} vs "
+            f"{cpu}")
+        if bad:
+            raise AssertionError(f"{kind or 'ambiguity '}step: card and CPU "
+                                 f"differ in {bad}")
+    name = max(worst, key=worst.get)
+    log(f"  each passport's update within {UPDATE_TOL} of its norm; worst "
+        f"{worst[name]:.3g} at {name}")
+    return worst[name]
 
 
 # ----------------------------------------------------------------- main
@@ -1020,14 +1368,18 @@ def main() -> int:
         return 1
 
     from deepipr_tpu_torch.ops.fused_augment import fused_augment
-    from deepipr_tpu_torch.ops.passport_epilogue import passport_epilogue
+    from deepipr_tpu_torch.ops.passport_epilogue import (
+        passport_epilogue,
+        passport_epilogue_backward,
+    )
 
     smi = environment()
     build_kernels()
 
     gen = torch.Generator().manual_seed(args.seed)
     max_err = {"passport_epilogue": check_epilogue(gen),
-               "passport_epilogue_bf16": check_epilogue(gen, BF16)}
+               "passport_epilogue_bf16": check_epilogue(gen, BF16),
+               "passport_epilogue_backward": check_backward(gen)}
     cases = augment_cases(args.seed)
     max_err["fused_augment"] = check_augment(cases)
     max_err["fused_augment_bf16"] = check_augment(cases, BF16)
@@ -1043,6 +1395,11 @@ def main() -> int:
             log(f"{form} {shape}: {json.dumps(t)} [{smi}]")
             if shape == MAIN_SHAPE:
                 timing[form] = t
+    for shape in ((ATTACK_BATCH, 512, 4, 4), MAIN_SHAPE):
+        t = time_backward(gen, timer, shape, smi)
+        log(f"passport_epilogue_backward {shape}: {json.dumps(t)} [{smi}]")
+        if shape[0] == ATTACK_BATCH:
+            timing["passport_epilogue_backward"] = t
     for form, dtype in (("fused_augment", torch.float32),
                         ("fused_augment_bf16", BF16)):
         timing[form] = time_augment(timer, cases[0], smi, dtype)
@@ -1058,12 +1415,15 @@ def main() -> int:
         for name, fn in wrappers.items():
             counts[name] = fn.form_launches[torch.float32]
             counts[f"{name}_bf16"] = fn.form_launches[BF16]
+        counts["passport_epilogue_backward"] = \
+            passport_epilogue_backward.launches
         return counts
 
     def reset():
         for fn in wrappers.values():
             fn.launches = 0
             fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+        passport_epilogue_backward.launches = 0
 
     batches = request_batches(3, args.seed)
     serve_counts = {}
@@ -1103,24 +1463,34 @@ def main() -> int:
         f"({rates['fused_augment_bf16'] / rates['fused_augment']:.2f}x) "
         f"[{smi}]")
 
-    cli_path(smi, launches, reset)
+    _, best = cli_path(smi, launches, reset)
+    attack_counts = attack_path(best, smi, launches, reset)
+    ambiguity_checks(best, launches, reset)
 
-    path_launches = {**serve_counts, **train_counts}
+    path_launches = {**serve_counts, **train_counts,
+                     "passport_epilogue_backward":
+                         attack_counts["passport_epilogue_backward"]}
+    # K2-bwd is the gradient of K2. It replaces no Pallas kernel: the JAX
+    # package differentiates the XLA epilogue that its default mode "off"
+    # (pallas_fused.py:121, 142-149) selects
     sources = {
         "passport_epilogue": "deepipr_tpu/ops/pallas_fused.py:52",
+        "passport_epilogue_backward": "deepipr_tpu/models/layers.py:177",
         "fused_augment": "deepipr_tpu/ops/pallas_augment.py:64",
     }
     kernels = [{
         "name": form,
         "route": "cuda",
-        "source": f"deepipr_tpu_torch/csrc/{form.removesuffix('_bf16')}.cu",
+        "source": "deepipr_tpu_torch/csrc/"
+                  f"{form.removesuffix('_bf16').removesuffix('_backward')}.cu",
         "replaces": sources[form.removesuffix("_bf16")],
         "launches": path_launches[form],
         "max_abs_err": max_err[form],
         "floor_ms": floor_ms,
         **timing[form],
     } for form in ("passport_epilogue", "passport_epilogue_bf16",
-                   "fused_augment", "fused_augment_bf16")]
+                   "passport_epilogue_backward", "fused_augment",
+                   "fused_augment_bf16")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,4 @@
-"""Command-line entry points of the port: ``python -m
-deepipr_tpu_torch.cli.train_v1`` and ``python -m
-deepipr_tpu_torch.cli.train_v23``, with the JAX package's flags."""
+"""Command-line entry points of the port, with the JAX package's flags:
+``python -m deepipr_tpu_torch.cli.train_v1`` and ``train_v23`` (training),
+``pruning_attack``, ``flip_attack``, ``passport_attack_1``/``_2``/``_3`` and
+``passport_forge_attack`` (the attack suite)."""

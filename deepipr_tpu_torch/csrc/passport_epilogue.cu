@@ -1,4 +1,5 @@
-// Fused eval-path passport epilogue for Hopper (sm_90a), f32 and bf16 forms.
+// Fused eval-path passport epilogue for Hopper (sm_90a), f32 and bf16 forms,
+// and the f32 form's gradient (K2-bwd, below the forward).
 //
 // Replaces deepipr_tpu/ops/pallas_fused.py::passport_epilogue_pallas (the
 // Pallas TPU kernel _epilogue_kernel). After the one convolution over
@@ -59,6 +60,32 @@
 // scalar path) is chosen by ops/passport_epilogue.py::epilogue_geometry and
 // checked here again.
 //
+// K2-bwd (passport_epilogue_backward_f32), f32 only: the gradient of the f32
+// form, which the JAX package takes by differentiating its XLA path (the
+// Pallas kernel has no backward). With yn = (y - mean) * invstd, the ReLU
+// mask m = out > 0 read from the forward's own output (1 without ReLU), and
+// g, gs, gb the gradients of out, scale and bias:
+//
+//     dy[n, c]          = (g * m) * (scale[c] * invstd[c])
+//     dscale[c]         = sum_{n,h,w} g * m * yn + gs[c]
+//     dbias[c]          = sum_{n,h,w} g * m + gb[c]
+//     dskey_out[0, c]   = dscale[c] / (H*W)      dkey_out[0, c] = dbias[c] / (H*W)
+//
+// Bound: memory. g, y and out are read once and dy written once, 16 bytes an
+// element: 33.6 MB at (256, 512, 4, 4), 10 us at 3.35 TB/s.
+// Design: two kernels, no float atomics, so the gradient is bit-identical from
+// call to call (as the forward's GAP is):
+//   1. bwd_partial walks y in memory order with the forward's tiles (a block
+//      owns tile_c channels x tile_rows rows, a thread a fixed 16-byte
+//      position of the span, kBwdUnroll rows in flight). It writes dy and sums
+//      its channel's two terms in row order; the block's threads of one
+//      channel are then added by one warp (lanes in order, then a shuffle
+//      tree), one partial per (row block, channel).
+//   2. bwd_finish adds the row blocks' partials of a channel (a warp a
+//      channel: lanes in order, then a shuffle tree), adds gs and gb, and
+//      broadcasts the quotient over the channel's H*W positions of
+//      dskey_out and dkey_out.
+//
 // Plain C interface for ctypes; the caller allocates every output and passes
 // PyTorch's current stream. Returns cudaGetLastError() after the launch.
 
@@ -76,6 +103,7 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxSmem = 48 * 1024;
 constexpr int kUnroll = 8;  // rows of y in flight per thread
 constexpr int kStage = 4;  // passport elements per thread and plane a stage
+constexpr int kBwdUnroll = 4;  // K2-bwd: rows of g, y and out in flight
 
 // Shared floats: the tile's four coefficient rows, then the staged key and
 // skey planes of tile_c channels x gap_len positions each.
@@ -300,7 +328,196 @@ int launch(const T* y, const float* key_out, const float* skey_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One element of K2-bwd: returns dy, adds the channel's two sums
+__device__ inline float backward_element(float g, float y, float o,
+                                         float m, float inv, float k,
+                                         int relu, float& a, float& b) {
+  const float gm = (!relu || o > 0.f) ? g : 0.f;
+  a += gm * ((y - m) * inv);
+  b += gm;
+  return gm * k;
+}
+
+// the four elements in memory order (one statement each: the order in which
+// the arguments of one call are evaluated is unspecified)
+__device__ inline float4 backward_element(float4 g, float4 y, float4 o,
+                                          float m, float inv, float k,
+                                          int relu, float& a, float& b) {
+  float4 d;
+  d.x = backward_element(g.x, y.x, o.x, m, inv, k, relu, a, b);
+  d.y = backward_element(g.y, y.y, o.y, m, inv, k, relu, a, b);
+  d.z = backward_element(g.z, y.z, o.z, m, inv, k, relu, a, b);
+  d.w = backward_element(g.w, y.w, o.w, m, inv, k, relu, a, b);
+  return d;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxThreads) passport_epilogue_bwd_partial(
+    const float* __restrict__ g, const float* __restrict__ y,
+    const float* __restrict__ out, const float* __restrict__ scale,
+    const float* __restrict__ mean, const float* __restrict__ var,
+    float* __restrict__ dy, float* __restrict__ part_scale,
+    float* __restrict__ part_bias, int n, int c, int hw, int tile_c,
+    int tile_rows, float eps, int relu) {
+  using V = std::conditional_t<kVec, float4, float>;
+  constexpr int kVw = kVec ? 4 : 1;
+  __shared__ float s_a[kMaxThreads];
+  __shared__ float s_b[kMaxThreads];
+
+  const int c0 = blockIdx.y * tile_c;
+  const int tc = min(tile_c, c - c0);
+  const int n0 = blockIdx.x * tile_rows;
+  const int rows = min(tile_rows, n - n0);
+  const int positions = tc * hw / kVw;
+  const size_t row_v = static_cast<size_t>(c) * hw / kVw;
+  const size_t base = (static_cast<size_t>(n0) * c + c0) * hw / kVw;
+  const V* gv = reinterpret_cast<const V*>(g) + base;
+  const V* yv = reinterpret_cast<const V*>(y) + base;
+  const V* ov = reinterpret_cast<const V*>(out) + base;
+  V* dv = reinterpret_cast<V*>(dy) + base;
+
+  // a thread's positions are all of one channel: one position when the tile
+  // has several channels (the geometry gives it a thread for each), any
+  // number when the tile is one channel
+  float a = 0.f, b = 0.f;
+  for (int p = threadIdx.x; p < positions; p += blockDim.x) {
+    const int ch = p * kVw / hw;
+    const float m = __ldg(mean + c0 + ch);
+    const float inv = __frcp_rn(__fsqrt_rn(__ldg(var + c0 + ch) + eps));
+    const float k = __ldg(scale + c0 + ch) * inv;
+    for (int r = 0; r < rows; r += kBwdUnroll) {
+      V gb[kBwdUnroll], yb[kBwdUnroll], ob[kBwdUnroll];
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u) {
+        if (r + u < rows) {
+          const size_t i = (r + u) * row_v + p;
+          gb[u] = __ldg(gv + i);
+          yb[u] = __ldg(yv + i);
+          ob[u] = __ldg(ov + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u)
+        if (r + u < rows)
+          dv[(r + u) * row_v + p] =
+              backward_element(gb[u], yb[u], ob[u], m, inv, k, relu, a, b);
+    }
+  }
+  s_a[threadIdx.x] = a;
+  s_b[threadIdx.x] = b;
+  __syncthreads();
+
+  // channel ch's threads are [ch * per, (ch + 1) * per): warp w adds those
+  // of channels w, w + warps, ... in a fixed order
+  const int per = min(hw / kVw, static_cast<int>(blockDim.x));
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int ch = threadIdx.x >> 5; ch < tc; ch += warps) {
+    float sa = 0.f, sb = 0.f;
+    for (int j = lane; j < per; j += 32) {
+      sa += s_a[ch * per + j];
+      sb += s_b[ch * per + j];
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      sa += __shfl_down_sync(0xffffffffu, sa, o);
+      sb += __shfl_down_sync(0xffffffffu, sb, o);
+    }
+    if (lane == 0) {
+      const size_t i = static_cast<size_t>(c0 + ch) * gridDim.x + blockIdx.x;
+      part_scale[i] = sa;
+      part_bias[i] = sb;
+    }
+  }
+}
+
+constexpr int kFinishWarps = 4;  // channels a block of bwd_finish finishes
+
+// warp w of block b finishes channel b * kFinishWarps + w: lane l adds the
+// channel's partials of row blocks l, l + 32, ... in order, a shuffle tree
+// adds the lanes into lane 0, whose sum every lane takes, and the lanes
+// write the channel's H*W positions
+__global__ void __launch_bounds__(32 * kFinishWarps)
+    passport_epilogue_bwd_finish(
+        const float* __restrict__ part_scale,
+        const float* __restrict__ part_bias,
+        const float* __restrict__ g_scale, const float* __restrict__ g_bias,
+        float* __restrict__ dkey_out, float* __restrict__ dskey_out, int c,
+        int hw, int row_blocks) {
+  const int ch =
+      blockIdx.x * kFinishWarps + static_cast<int>(threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (ch >= c) return;  // the whole warp: ch is the warp's
+  const size_t row = static_cast<size_t>(ch) * row_blocks;
+  float sa = 0.f, sb = 0.f;
+  for (int r = lane; r < row_blocks; r += 32) {
+    sa += __ldg(part_scale + row + r);
+    sb += __ldg(part_bias + row + r);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    sa += __shfl_down_sync(0xffffffffu, sa, o);
+    sb += __shfl_down_sync(0xffffffffu, sb, o);
+  }
+  sa = __shfl_sync(0xffffffffu, sa, 0);
+  sb = __shfl_sync(0xffffffffu, sb, 0);
+  const float ds = (sa + __ldg(g_scale + ch)) / static_cast<float>(hw);
+  const float db = (sb + __ldg(g_bias + ch)) / static_cast<float>(hw);
+  for (int j = lane; j < hw; j += 32) {
+    dskey_out[static_cast<size_t>(ch) * hw + j] = ds;
+    dkey_out[static_cast<size_t>(ch) * hw + j] = db;
+  }
+}
+
 }  // namespace
+
+// tile_c, tile_rows, threads and vector come from
+// ops/passport_epilogue.py::backward_geometry; part_scale and part_bias hold
+// (C, row blocks) floats each.
+extern "C" int passport_epilogue_backward_f32(
+    const float* g, const float* y, const float* out, const float* scale,
+    const float* mean, const float* var, const float* g_scale,
+    const float* g_bias, float* dy, float* dkey_out, float* dskey_out,
+    float* part_scale, float* part_bias, int n, int c, int hw, int tile_c,
+    int tile_rows, int threads, int vector, float eps, int relu, int device,
+    void* stream) {
+  const int vw = vector ? 4 : 1;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool bad_shape = n <= 0 || c <= 0 || hw <= 0 || tile_c <= 0 ||
+                         tile_c > c || tile_rows <= 0 ||
+                         static_cast<long long>(tile_c) * hw > INT_MAX;
+  // a tile of several channels needs a thread for each of its positions
+  const bool bad_block =
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      (tile_c > 1 && static_cast<long long>(tile_c) * hw / vw > threads);
+  const bool bad_vector =
+      vector && (hw % 4 != 0 || !aligned(g) || !aligned(y) || !aligned(out) ||
+                 !aligned(dy));
+  const long long c_tiles = (static_cast<long long>(c) + tile_c - 1) / tile_c;
+  if (bad_shape || bad_block || bad_vector || c_tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row_blocks = (n + tile_rows - 1) / tile_rows;
+  const dim3 grid(row_blocks, c_tiles);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vector) {
+    passport_epilogue_bwd_partial<true><<<grid, threads, 0, s>>>(
+        g, y, out, scale, mean, var, dy, part_scale, part_bias, n, c, hw,
+        tile_c, tile_rows, eps, relu);
+  } else {
+    passport_epilogue_bwd_partial<false><<<grid, threads, 0, s>>>(
+        g, y, out, scale, mean, var, dy, part_scale, part_bias, n, c, hw,
+        tile_c, tile_rows, eps, relu);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  passport_epilogue_bwd_finish<<<(c + kFinishWarps - 1) / kFinishWarps,
+                                 32 * kFinishWarps, 0, s>>>(
+      part_scale, part_bias, g_scale, g_bias, dkey_out, dskey_out, c, hw,
+      row_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int passport_epilogue_f32(
     const float* y, const float* key_out, const float* skey_out,

@@ -20,10 +20,11 @@ back once at the end.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from deepipr_tpu_torch.attacks.common import derived_affines
 from deepipr_tpu_torch.data.device_augment import (
@@ -271,17 +272,25 @@ def run_dual_eval(step, dataset) -> Dict[str, float]:
 
 
 def make_eval_step(model, ind: int = 0, force_passport: bool = False,
-                   device: DeviceLike = "cuda"):
+                   device: DeviceLike = "cuda",
+                   tensors: Optional[Mapping[str, torch.Tensor]] = None):
     """Sum-reduced CE + correct-count eval step (reference Tester.test), in
-    eval mode whatever the model's mode."""
+    eval mode whatever the model's mode. ``tensors`` (by state-dict name,
+    e.g. an attack's fake passports) stand in for the model's own in each
+    call (``functional_call``); the model is not modified."""
     dev = resolve_device(device)
     require_on_device(model, dev)
+    kwargs = {"ind": ind, "force_passport": force_passport}
 
     @torch.inference_mode()
     def step(batch):
         x, y = _batch(batch, dev)
         with eval_mode(model):
-            logits = model(x, ind=ind, force_passport=force_passport).logits
+            if tensors is None:
+                logits = model(x, **kwargs).logits
+            else:
+                logits = functional_call(model, dict(tensors), (x,),
+                                         kwargs).logits
         ce_sum, correct = _sums(logits, y)
         return {"ce_sum": ce_sum, "correct": correct}
 

@@ -24,8 +24,11 @@ from deepipr_tpu_torch.data.device_augment import (
 from deepipr_tpu_torch.models.registry import build_model
 from deepipr_tpu_torch.ops.fused_augment import augment_geometry, fused_augment
 from deepipr_tpu_torch.ops.passport_epilogue import (
+    backward_geometry,
     epilogue_geometry,
     passport_epilogue,
+    passport_epilogue_backward,
+    passport_epilogue_backward_reference,
     passport_epilogue_reference,
 )
 from deepipr_tpu_torch.train.state import TrainState
@@ -194,6 +197,103 @@ def test_epilogue_bf16_kernel_is_deterministic(cuda):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- K2-bwd
+
+def _backward_args(shape, device, seed=5):
+    """(g, y, out, scale, mean, var, g_scale, g_bias): out and scale from the
+    forward kernel on the same y, so the mask is the forward's own."""
+    y, key_out, skey_out, mean, var = _epilogue_args(shape, device, seed)
+    out, scale, _ = passport_epilogue(y, key_out, skey_out, mean, var)
+    gen = torch.Generator().manual_seed(seed + 1)
+    c = shape[1]
+    g = torch.randn(shape, generator=gen).to(device)
+    g_scale = torch.randn(c, generator=gen).to(device)
+    g_bias = torch.randn(c, generator=gen).to(device)
+    return [g, y, out, scale, mean, var, g_scale, g_bias]
+
+
+# dy is one product of the same f32 factors on both sides; the per-channel
+# sums over N*H*W terms run in another order (the kernel's rows, lanes and
+# row blocks against torch's reduction), which moves them by a few f32
+# units of their magnitude (up to about 1e2 at batch 1024)
+BWD_SUM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b64", "b256", "b1024", "b1", "hw49",
+                                  "ragged_tile", "misaligned_y"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_epilogue_backward_kernel_matches_plain_version(cuda, case, relu):
+    # b1: the forge attack's batch of one image
+    shape = {"b64": (64, 512, 4, 4), "b1024": (1024, 512, 4, 4),
+             "b1": (1, 512, 4, 4), "hw49": (8, 512, 7, 7),
+             "ragged_tile": (3, 40, 5, 3)}.get(
+        case, (256, 512, 4, 4))
+    args = _backward_args(shape, cuda)
+    if not relu:
+        args[2] = passport_epilogue(*_epilogue_args(shape, cuda, 5),
+                                    relu=False)[0]
+    if case == "misaligned_y":
+        args[1] = _misaligned(args[1])
+    n, c, h, w = shape
+    geo = backward_geometry(n, c, h * w, args[0].data_ptr(),
+                            args[1].data_ptr(), args[2].data_ptr())
+    assert geo.vector == (case not in ("hw49", "ragged_tile",
+                                       "misaligned_y"))
+    before = passport_epilogue_backward.launches
+    got = passport_epilogue_backward(*args, relu=relu)
+    again = passport_epilogue_backward(*args, relu=relu)
+    torch.cuda.synchronize()
+    assert passport_epilogue_backward.launches == before + 2
+    want = passport_epilogue_backward_reference(*args, relu=relu)
+    for g_, a_ in zip(got, again):
+        assert torch.equal(g_, a_)  # no float atomics: bit-identical
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=0)
+    for g_, w_ in zip(got[1:], want[1:]):
+        assert g_.shape == (1, c, h, w)
+        torch.testing.assert_close(g_, w_, **BWD_SUM_TOL)
+
+
+@pytest.mark.cuda
+def test_epilogue_under_autograd_runs_both_kernels(cuda):
+    """With grad mode on and passports that require a gradient, the outputs
+    carry a grad_fn; backward is one K2-bwd launch and agrees with autograd
+    of the plain version on the CPU."""
+    shape = (32, 512, 4, 4)
+    y, key_out, skey_out, mean, var = _epilogue_args(shape, cuda, seed=6)
+    leaves = [t.clone().requires_grad_(True) for t in (y, key_out, skey_out)]
+    fwd, bwd = passport_epilogue.launches, passport_epilogue_backward.launches
+    out, scale, bias = passport_epilogue(*leaves, mean, var)
+    assert all(t.grad_fn is not None for t in (out, scale, bias))
+    assert passport_epilogue.launches == fwd + 1
+    gen = torch.Generator().manual_seed(7)
+    g = torch.randn(shape, generator=gen)
+    loss = (out * g.to(cuda)).sum() + scale.square().sum() + bias.sum()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert passport_epilogue_backward.launches == bwd + 1
+    assert passport_epilogue.launches == fwd + 1
+
+    cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
+    o, s, b = passport_epilogue_reference(*cpu, mean.cpu(), var.cpu())
+    want = torch.autograd.grad((o * g).sum() + s.square().sum() + b.sum(),
+                               cpu)
+    torch.testing.assert_close(grads[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
+    for g_, w_ in zip(grads[1:], want[1:]):
+        torch.testing.assert_close(g_.cpu(), w_, **BWD_SUM_TOL)
+
+
+@pytest.mark.cuda
+def test_epilogue_bf16_under_autograd_raises(cuda):
+    args = _epilogue_args((4, 512, 4, 4), cuda, seed=8)
+    args[1].requires_grad_(True)
+    args[0] = args[0].to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="K2-bwd"):
+        passport_epilogue(*args)
+    with torch.no_grad():  # no gradient wanted: the forward kernel runs
+        passport_epilogue(*args)
 
 
 # ------------------------------------------------------------------ K1

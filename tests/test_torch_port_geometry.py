@@ -173,6 +173,71 @@ def test_epilogue_geometry_at_the_main_shape():
         smem_bytes=4608, vector=True)
 
 
+# -------------------------------------------------------------- K2-bwd
+
+BACKWARD_SHAPES = sorted(set(SMOKE.BWD_SHAPES) | set(EPILOGUE_SHAPES))
+
+
+def _walk_backward(n, c, hw, geo):
+    """Count how often bwd_partial writes each element of dy and each
+    (channel, row block) partial, and check that the threads its per-channel
+    reduction reads for a channel, [ch * per, (ch + 1) * per), are exactly
+    the threads whose positions hold that channel."""
+    vw = 4 if geo.vector else 1
+    written = np.zeros(n * c * hw, np.int32)
+    partials = np.zeros((c, geo.grid[0]), np.int32)
+    per = min(hw // vw, geo.threads)
+    for cy in range(geo.grid[1]):
+        c0 = cy * geo.tile_c
+        tc = min(geo.tile_c, c - c0)
+        positions = tc * hw // vw
+        assert positions * vw == tc * hw
+        assert geo.tile_c == 1 or positions <= geo.threads
+        owners = {}
+        for t in range(geo.threads):
+            chans = {p * vw // hw for p in range(t, positions, geo.threads)}
+            assert len(chans) <= 1  # a thread sums one channel
+            for ch in chans:
+                owners.setdefault(ch, set()).add(t)
+        for ch in range(tc):
+            read = set(range(ch * per, (ch + 1) * per))
+            assert owners[ch] <= read
+            # the other threads read hold no position (their sums are 0)
+            assert all(not owners[o] & read for o in owners if o != ch)
+        p = np.arange(positions)
+        span = (p[:, None] * vw + np.arange(vw)[None, :]).ravel()
+        for rx in range(geo.grid[0]):
+            rows = np.arange(rx * geo.tile_rows,
+                             min(n, (rx + 1) * geo.tile_rows))
+            assert rows.size >= 1
+            idx = (rows[:, None] * c * hw + c0 * hw + span[None, :]).ravel()
+            np.add.at(written, idx, 1)
+            partials[c0:c0 + tc, rx] += 1
+    return written, partials
+
+
+@pytest.mark.parametrize("pointers", sorted(POINTERS))
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+def test_backward_geometry_covers_every_element_once(shape, pointers):
+    n, c, h, w = shape
+    geo = k2.backward_geometry(n, c, h * w, *POINTERS[pointers])
+    assert geo.vector == ((h * w) % 4 == 0 and pointers == "aligned")
+    assert 32 <= geo.threads <= min(k2.MAX_THREADS, MAX_BLOCK)
+    assert geo.threads % 32 == 0
+    assert 1 <= geo.grid[0] <= MAX_GRID_X and 1 <= geo.grid[1] <= MAX_GRID_Y
+    written, partials = _walk_backward(n, c, h * w, geo)
+    assert (written == 1).all()
+    assert (partials == 1).all()
+
+
+def test_backward_geometry_at_the_attack_batch():
+    """The attack CLIs' (64, 512, 4, 4): the forward's 32-channel spans, one
+    float4 a thread, 2 rows a block, 32 x 16 = 512 blocks."""
+    geo = k2.backward_geometry(64, 512, 16, *POINTERS["aligned"])
+    assert geo == k2.BackwardGeometry(grid=(32, 16), threads=128, tile_c=32,
+                                      tile_rows=2, vector=True)
+
+
 # ------------------------------------------------------------------ K1
 
 AUGMENT_SHAPES = sorted({(b, s[1], s[2], s[3])
