@@ -92,11 +92,12 @@ BF16 = torch.bfloat16
 LOGITS_TOL = dict(rtol=1e-3, atol=2e-4)
 # K2-bwd: the serving shapes at the attack CLIs' batch 64 and beyond, the
 # forge attack's batch 1, 7x7 (the scalar path) and a ragged tile. dy is one
-# product of the same f32 factors as the plain version's; the per-channel
-# sums run in another order (tests/test_torch_port_cuda.py's tolerance)
+# product of the same f32 factors as the plain version's, under the same
+# mask (the kernel's recomputed one against K2's own out > 0): bit for bit;
+# the per-channel sums run in another order
+# (tests/test_torch_port_cuda.py's tolerance)
 BWD_SHAPES = [(64, 512, 4, 4), MAIN_SHAPE, (1024, 512, 4, 4), (1, 512, 4, 4),
               (8, 512, 7, 7), (3, 40, 5, 3)]
-BWD_DY_TOL = dict(rtol=1e-6, atol=0.0)
 BWD_SUM_TOL = dict(rtol=1e-4, atol=1e-4)
 # K1 normalized against its plain version: tests/test_pallas_augment.py's
 # tolerance (1 ulp); the pixels before normalizing must agree bit for bit
@@ -331,9 +332,11 @@ def epilogue_inputs(shape, gen, dtype=torch.float32):
 
 def check_epilogue(gen, dtype=torch.float32) -> float:
     """The kernel's ``dtype`` form against its plain version; returns the
-    largest error. The bf16 form's out within BF16_ULPS, its scale and bias
-    equal to the f32 form's on the same passport outputs."""
+    largest error. The bf16 form's out within BF16_ULPS; scale and bias bit
+    for bit the plain version's fixed-order GAP, and in bf16 the f32
+    form's on the same passport outputs."""
     from deepipr_tpu_torch.ops.passport_epilogue import (
+        fixed_order_gap,
         passport_epilogue,
         passport_epilogue_reference,
     )
@@ -358,7 +361,10 @@ def check_epilogue(gen, dtype=torch.float32) -> float:
                     raise AssertionError(f"passport_epilogue {label}: two "
                                          f"calls gave different {name}")
                 if name != "out":
-                    torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"passport_epilogue {label} {dtype}: {name} "
+                            "differs from fixed_order_gap")
                 elif dtype == torch.float32:
                     torch.testing.assert_close(g, w, **KERNEL_TOL)
                 elif g.dtype != dtype or bf16_ulps(g, w) > BF16_ULPS:
@@ -429,55 +435,78 @@ def time_epilogue(gen, timer: DeviceTimer, shape, smi: str,
 
 
 def backward_inputs(shape, gen, relu=True):
-    """K2-bwd's inputs on the card: (g, y, out, scale, mean, var, g_scale,
-    g_bias), out and scale from K2 on the same y (the forward's own mask)."""
+    """K2-bwd's inputs on the card, (g, y, bias, scale, mean, var, g_scale,
+    g_bias), and K2's own out: bias, scale and out from K2 on the same y
+    (the plain version takes its mask from that out)."""
     from deepipr_tpu_torch.ops.passport_epilogue import passport_epilogue
 
     y, key_out, skey_out, mean, var = epilogue_inputs(shape, gen)
-    out, scale, _ = passport_epilogue(y, key_out, skey_out, mean, var,
-                                      relu=relu)
+    out, scale, bias = passport_epilogue(y, key_out, skey_out, mean, var,
+                                         relu=relu)
     c = shape[1]
     g = torch.randn(shape, generator=gen).cuda()
     g_scale = torch.randn(c, generator=gen).cuda()
     g_bias = torch.randn(c, generator=gen).cuda()
-    return [g, y, out, scale, mean, var, g_scale, g_bias]
+    return [g, y, bias, scale, mean, var, g_scale, g_bias], out
+
+
+def counters_nonzero(t: torch.Tensor) -> int:
+    """K2-bwd's arrival counters of t's device and current stream that are
+    not 0 (every launch must leave them at 0)."""
+    from deepipr_tpu_torch.ops.passport_epilogue import arrival_counters
+
+    torch.cuda.synchronize()
+    index = t.device.index
+    return int(arrival_counters(
+        index, torch.cuda.current_stream(index).cuda_stream).count_nonzero())
 
 
 def check_backward(gen) -> float:
-    """K2-bwd against its plain version at BWD_SHAPES, a misaligned y, relu
-    on and off; bit-identical over two calls. dy within BWD_DY_TOL, dkey_out
-    and dskey_out within BWD_SUM_TOL. Returns the largest error."""
+    """K2-bwd against its plain version fed K2's own out, at BWD_SHAPES and
+    a misaligned y, relu on and off: dy bit for bit, dkey_out and dskey_out
+    within BWD_SUM_TOL, bit-identical over two calls, the arrival counters
+    at 0 after each call. Returns the largest error."""
     from deepipr_tpu_torch.ops.passport_epilogue import (
         passport_epilogue_backward,
         passport_epilogue_backward_reference,
     )
 
-    worst, dy_exact = 0.0, True
+    worst = 0.0
     cases = [(shape, shape) for shape in BWD_SHAPES]
     cases.append(("misaligned y", MAIN_SHAPE))
     for label, shape in cases:
         for relu in (True, False):
-            args = backward_inputs(shape, gen, relu)
+            args, out = backward_inputs(shape, gen, relu)
             if label == "misaligned y":
                 args[1] = misaligned(args[1])
-            got = passport_epilogue_backward(*args, relu=relu)
-            again = passport_epilogue_backward(*args, relu=relu)
-            torch.cuda.synchronize()
-            want = passport_epilogue_backward_reference(*args, relu=relu)
-            for name, g, a, w, tol in zip(
-                    ("dy", "dkey_out", "dskey_out"), got, again, want,
-                    (BWD_DY_TOL, BWD_SUM_TOL, BWD_SUM_TOL)):
+            calls = []
+            for _ in range(2):
+                calls.append(passport_epilogue_backward(*args, relu=relu))
+                if counters_nonzero(args[1]):
+                    raise AssertionError(f"passport_epilogue_backward "
+                                         f"{label}: arrival counters left "
+                                         "above 0")
+            got, again = calls
+            g, y, _, scale, mean, var, g_scale, g_bias = args
+            want = passport_epilogue_backward_reference(
+                g, y, out, scale, mean, var, g_scale, g_bias, relu=relu)
+            for name, g, a, w in zip(("dy", "dkey_out", "dskey_out"), got,
+                                     again, want):
                 if not torch.equal(g, a):
                     raise AssertionError(f"passport_epilogue_backward "
                                          f"{label}: two calls gave "
                                          f"different {name}")
-                torch.testing.assert_close(g, w, **tol)
+                if name == "dy" and not torch.equal(g, w):
+                    raise AssertionError(
+                        f"passport_epilogue_backward {label} relu={relu}: "
+                        f"dy differs from the plain version's at "
+                        f"{int((g != w).sum())} elements")
+                torch.testing.assert_close(g, w, **BWD_SUM_TOL)
                 worst = max(worst, (g - w).abs().max().item())
-            dy_exact = dy_exact and torch.equal(got[0], want[0])
-        log(f"passport_epilogue_backward {label}: agrees with the plain "
-            "version (relu on and off), bit-identical over two calls")
-    log(f"passport_epilogue_backward: dy bit for bit with the plain "
-        f"version in every case: {dy_exact}; largest error {worst}")
+        log(f"passport_epilogue_backward {label}: dy bit for bit with the "
+            "plain version fed K2's out, the planes within BWD_SUM_TOL (relu "
+            "on and off), bit-identical over two calls, counters at 0")
+    log(f"passport_epilogue_backward: largest error {worst}")
     return worst
 
 
@@ -490,8 +519,8 @@ def time_backward(gen, timer: DeviceTimer, shape, smi: str) -> dict:
         passport_epilogue_backward_reference,
     )
 
-    args = backward_inputs(shape, gen)
-    g, y, out, scale, mean, var, _, _ = args
+    args, out = backward_inputs(shape, gen)
+    g, y, _, scale, mean, var, g_scale, g_bias = args
 
     def library():
         torch.ops.aten.native_batch_norm_backward(
@@ -500,32 +529,28 @@ def time_backward(gen, timer: DeviceTimer, shape, smi: str) -> dict:
 
     n, c, h, w = shape
     elems = n * c * h * w
-    # g, y and out read and dy written; scale, mean, var and the two
+    # the function's least traffic, 12 bytes an element: g and y read and
+    # dy written (the mask needs no out); bias, scale, mean, var and the two
     # gradients of scale/bias read; dkey_out and dskey_out written
-    nbytes = 4 * (4 * elems + 5 * c + 2 * c * h * w)
-    flops = 8 * elems + 2 * c * h * w
+    nbytes = 4 * (3 * elems + 6 * c + 2 * c * h * w)
+    flops = 11 * elems + 2 * c * h * w
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / F32_FLOPS_PER_S * 1e3}
     bound_by = max(bound, key=bound.get)
-    # a design that recomputes the mask reads g and y and writes dy only;
-    # logged beside the bound, not a number of this kernel
-    log(f"passport_epilogue_backward {shape}: bound {bound[bound_by]} ms "
-        f"by {bound_by}; a design that recomputes the mask: "
-        f"{4 * 3 * elems / HBM_BYTES_PER_S * 1e3} ms by bytes")
 
     def kernel():
         passport_epilogue_backward(*args)
 
     copy = torch.empty_like(y)
-    memory_diagnostics(timer, kernel, "passport_epilogue_bwd_partial",
+    memory_diagnostics(timer, kernel, "passport_epilogue_bwd_kernel",
                        lambda: torch.add(g, y, out=copy), "CUDAFunctor_add",
                        f"passport_epilogue_backward {shape}", smi)
     return {
         "ms": timer.ms(kernel),
-        "profiled_ms": timer.profiled_ms(kernel, "passport_epilogue_bwd",
-                                         per_call=2),
-        "plain_ms": timer.ms(
-            lambda: passport_epilogue_backward_reference(*args)),
+        "profiled_ms": timer.profiled_ms(kernel,
+                                         "passport_epilogue_bwd_kernel"),
+        "plain_ms": timer.ms(lambda: passport_epilogue_backward_reference(
+            g, y, out, scale, mean, var, g_scale, g_bias)),
         "library_ms": timer.ms(library),
         "bound_ms": bound[bound_by],
         "bound_by": bound_by,

@@ -90,8 +90,9 @@ def build_parser():
     p.add_argument("--pallas-input", action="store_true", default=False,
                    help="with --epoch-scan: accepted for the JAX package's "
                         "command lines; the port's epoch always runs kernel "
-                        "K1, whose batches are bit-identical to the JAX "
-                        "package's XLA and Pallas input stages")
+                        "K1, whose batches take the same crops and flips as "
+                        "the JAX package's XLA and Pallas input stages and "
+                        "normalize to within 1 ulp (atol 3e-7) of either")
     p.add_argument("--ckpt-every", type=int, default=1,
                    help="save last.ckpt every N epochs (default 1 = the "
                         "reference's cadence)")

@@ -18,38 +18,45 @@ GPU the kernel runs or the call raises.
 Under autograd (an f32 ``y``, ``key_out`` or ``skey_out`` that requires a
 gradient, with grad mode on) a CUDA call goes through
 ``PassportEpilogueFunction``, whose backward is kernel K2-bwd
-(``passport_epilogue_backward``, the same source; its plain version is
-``passport_epilogue_backward_reference``). The attacks differentiate the
-private forward with respect to the passports through it, as the JAX package
-differentiates its XLA path. A CPU call is differentiated by autograd through
-the plain version.
+(``passport_epilogue_backward``, the same source: one launch, the ReLU mask
+recomputed from y, scale and bias; its plain version is
+``passport_epilogue_backward_reference``, which takes the mask from a given
+``out``). The attacks differentiate the private forward with respect to the
+passports through it, as the JAX package differentiates its XLA path. A CPU
+call is differentiated by autograd through the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from deepipr_tpu_torch.ops import cuda_build
 
 # 8 pointers; n, c, hw; tile_c, tile_rows, threads, gap_len, smem_bytes,
-# vector; eps; relu, device; the stream
-_C_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+# vector, row_split; eps; relu, device; the stream
+_C_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-# K2-bwd: 13 pointers; n, c, hw; tile_c, tile_rows, threads, vector; eps;
+# K2-bwd: 14 pointers; n, c, hw; tile_c, tile_rows, threads, vector; eps;
 # relu, device; the stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 
 SPAN_ELEMENTS = 512  # one row's span of a block: 2 KB of f32 y, 1 KB of bf16
-STAGE = 4  # kStage of csrc/passport_epilogue.cu: passport floats a thread
+# kStage of csrc/passport_epilogue.cu: a GAP lane adds at most STAGE
+# positions of a stage where the group's 32 lanes allow it, which fixes the
+# GAP's summation order; also the positions a lane loads per round
+STAGE = 4
 MAX_THREADS = 512  # kMaxThreads of csrc/passport_epilogue.cu
+MAX_GAP = STAGE * MAX_THREADS  # positions of a channel's planes a stage
 TARGET_BLOCKS = 512  # about four blocks per SM of an H100
 MAX_SMEM = 48 * 1024  # static shared-memory limit of a block, no opt-in
+BWD_ROWS = 4  # kBwdUnroll of csrc/passport_epilogue.cu: K2-bwd's rows in flight
+MAX_C_TILES = 65535  # CUDA's limit on gridDim.y: K2-bwd's arrival counters
 
 
 class EpilogueGeometry(NamedTuple):
@@ -60,10 +67,13 @@ class EpilogueGeometry(NamedTuple):
     threads: int
     tile_c: int
     tile_rows: int
-    gap_len: int  # positions of each channel's passport planes per stage
+    gap_len: int  # positions of each channel's passport planes per GAP stage
     smem_bytes: int
     vector: bool  # 16-byte loads and stores of y and out
     itemsize: int = 4  # bytes of an element of y and out: 4 f32, 2 bf16
+    # groups of threads // row_split threads, group g on rows g, g +
+    # row_split, ... of the span
+    row_split: int = 1
 
 
 def epilogue_geometry(n: int, c: int, hw: int, y_ptr: int, out_ptr: int,
@@ -73,13 +83,19 @@ def epilogue_geometry(n: int, c: int, hw: int, y_ptr: int, out_ptr: int,
     ``out_ptr``.
 
     A channel tile spans SPAN_ELEMENTS of a row (32 channels at H*W = 16),
-    one thread per 16 bytes of it (4 f32 or 8 bf16; one element when H*W is
-    not a multiple of that or a pointer is not 16-byte aligned), and at
-    least one thread per STAGE passport floats of the tile. Rows per block:
-    enough that the grid has about TARGET_BLOCKS blocks (8 at the main
-    shape, all in flight at once). The passport planes are staged whole,
-    unless the tile is one channel of more than STAGE floats a thread; then
-    STAGE * threads of it at a time.
+    a position of it for each 16 bytes (4 f32 or 8 bf16; one element when
+    H*W is not a multiple of that or a pointer is not 16-byte aligned). The
+    GAP wants a thread per STAGE passport floats of the tile, so that it
+    sums every channel of the tile at once (exactly so where H*W / STAGE is
+    a power of two, as at 4x4); where that is at least twice
+    the positions (bf16's vectors: 128 threads for 64 positions at the main
+    shape), the threads split the rows instead of idling: ``row_split``
+    groups, each over the whole span. So every thread carries y, up to a
+    warp's rounding and MAX_THREADS. Rows per block: enough that the grid
+    has about TARGET_BLOCKS blocks (8 at the main shape, all in flight at
+    once). The GAP sums MAX_GAP positions of a channel a stage at most
+    (``gap_len``), which fixes its order (``fixed_order_gap``); shared
+    memory holds the tile's four coefficient rows.
     """
     if itemsize not in (2, 4):
         raise ValueError(f"passport_epilogue: {itemsize}-byte elements")
@@ -87,48 +103,54 @@ def epilogue_geometry(n: int, c: int, hw: int, y_ptr: int, out_ptr: int,
     vector = hw % width == 0 and y_ptr % 16 == 0 and out_ptr % 16 == 0
     tile_c = min(c, max(1, SPAN_ELEMENTS // hw))
     positions = tile_c * hw // (width if vector else 1)
-    threads = min(MAX_THREADS,
-                  -(-max(positions, -(-tile_c * hw // STAGE)) // 32) * 32)
+    lanes = min(MAX_THREADS,
+                -(-max(positions, -(-tile_c * hw // STAGE)) // 32) * 32)
+    row_split = max(1, lanes // positions)
+    threads = min(MAX_THREADS, -(-positions * row_split // 32) * 32)
     c_tiles = -(-c // tile_c)
-    if c_tiles > 65535:
+    if c_tiles > MAX_C_TILES:
         raise ValueError(f"passport_epilogue: {c} channels of {hw} positions "
                          "need more than 65535 channel tiles")
     tile_rows = min(n, -(-n * c_tiles // TARGET_BLOCKS))
-    gap_len = hw if tile_c * hw <= STAGE * threads else STAGE * threads
+    gap_len = min(hw, MAX_GAP)
     return EpilogueGeometry(
         grid=(-(-n // tile_rows), c_tiles), threads=threads, tile_c=tile_c,
         tile_rows=tile_rows, gap_len=gap_len,
-        smem_bytes=4 * (4 * tile_c + 2 * tile_c * gap_len), vector=vector,
-        itemsize=itemsize)
+        smem_bytes=4 * 4 * tile_c, vector=vector,
+        itemsize=itemsize, row_split=row_split)
 
 
 class BackwardGeometry(NamedTuple):
-    """One launch of K2-bwd's first kernel: block (r, t) covers batch rows
+    """The one launch of K2-bwd: block (r, t) covers batch rows
     [r * tile_rows, (r + 1) * tile_rows) of channels [t * tile_c,
     (t + 1) * tile_c); a thread owns one 16-byte position of the span (or
-    one element), or, when the tile is one channel, every ``threads``-th."""
+    one element), or, when the tile is one channel, every ``threads``-th.
+    The last of the grid[0] blocks of channel tile t to finish adds the
+    tile's partials and writes its dkey_out and dskey_out planes."""
     grid: Tuple[int, int]  # (row blocks, channel tiles)
     threads: int
     tile_c: int
     tile_rows: int
-    vector: bool  # float4 loads of g, y, out and stores of dy
+    vector: bool  # float4 loads of g and y and stores of dy
 
 
 def backward_geometry(n: int, c: int, hw: int, *ptrs: int
                       ) -> BackwardGeometry:
     """K2-bwd's geometry for an (N, C, H*W) f32 ``y``; ``ptrs``: the
-    addresses of g, y, out and dy. The forward's tiles (SPAN_ELEMENTS of a
-    row, rows for about TARGET_BLOCKS blocks), with a thread for every
-    position of a tile of several channels."""
+    addresses of g, y and dy. The forward's tiles (SPAN_ELEMENTS of a
+    row), with a thread for every position of a tile of several channels,
+    and at least BWD_ROWS rows a block (so that every thread has that many
+    rows of g and y in flight), more where the grid would otherwise exceed
+    about TARGET_BLOCKS blocks."""
     vector = hw % 4 == 0 and all(p % 16 == 0 for p in ptrs)
     tile_c = min(c, max(1, SPAN_ELEMENTS // hw))
     positions = tile_c * hw // (4 if vector else 1)
     threads = min(MAX_THREADS, -(-positions // 32) * 32)
     c_tiles = -(-c // tile_c)
-    if c_tiles > 65535:
+    if c_tiles > MAX_C_TILES:
         raise ValueError(f"passport_epilogue_backward: {c} channels of {hw} "
                          "positions need more than 65535 channel tiles")
-    tile_rows = min(n, -(-n * c_tiles // TARGET_BLOCKS))
+    tile_rows = min(n, max(BWD_ROWS, -(-n * c_tiles // TARGET_BLOCKS)))
     return BackwardGeometry(grid=(-(-n // tile_rows), c_tiles),
                             threads=threads, tile_c=tile_c,
                             tile_rows=tile_rows, vector=vector)
@@ -145,7 +167,7 @@ def fixed_order_gap(t: torch.Tensor) -> torch.Tensor:
     c = t.shape[1]
     hw = t.shape[2] * t.shape[3]
     flat = t.reshape(c, hw)
-    gap_len = min(hw, STAGE * MAX_THREADS)
+    gap_len = min(hw, MAX_GAP)
     group = 1
     while group < 32 and STAGE * group < gap_len:
         group *= 2
@@ -161,7 +183,9 @@ def fixed_order_gap(t: torch.Tensor) -> torch.Tensor:
             width //= 2
             lanes = lanes[:, :width] + lanes[:, width:2 * width]
         total = lanes[:, 0] if total is None else lanes[:, 0] + total
-    return total / hw
+    # an IEEE division, as the kernel's: on CUDA, ATen multiplies by the
+    # reciprocal of a Python-number divisor, which is not bit for bit
+    return total / torch.full_like(total, hw)
 
 
 def passport_epilogue_reference(
@@ -182,14 +206,17 @@ def passport_epilogue_reference(
     by many of its own units."""
     scale = fixed_order_gap(skey_out)
     bias = fixed_order_gap(key_out)
+    return _normalize_affine(y, scale, bias, mean, var, eps, relu), scale, bias
+
+
+def _normalize_affine(y, scale, bias, mean, var, eps, relu):
+    """The plain version's out from given scale and bias."""
     inv = 1.0 / torch.sqrt(var + eps)
     dt = y.dtype
     normed = ((y.to(torch.float32) - mean.view(1, -1, 1, 1))
               * inv.view(1, -1, 1, 1)).to(dt)
     out = scale.to(dt).view(1, -1, 1, 1) * normed + bias.to(dt).view(1, -1, 1, 1)
-    if relu:
-        out = torch.relu(out)
-    return out, scale, bias
+    return torch.relu(out) if relu else out
 
 
 def passport_epilogue_backward_reference(
@@ -271,25 +298,25 @@ class PassportEpilogueFunction(torch.autograd.Function):
     """K2 with K2-bwd as its backward, for CUDA f32 tensors.
 
     Forward: the kernel, as ``passport_epilogue``. Backward: kernel K2-bwd
-    (``passport_epilogue_backward``) on the saved y and out (whose ``> 0``
-    is the ReLU mask) and the forward's scale. A gradient that autograd
-    did not compute (an output no loss reaches) arrives as zeros.
+    (``passport_epilogue_backward``) on the saved y and the forward's scale
+    and bias, from which it recomputes the ReLU mask. A gradient that
+    autograd did not compute (an output no loss reaches) arrives as zeros.
     """
 
     @staticmethod
     def forward(ctx, y, key_out, skey_out, mean, var, eps, relu):
         out, scale, bias = _launch_forward(y, key_out, skey_out, mean, var,
                                            eps, relu)
-        ctx.save_for_backward(y, out, scale, mean, var)
+        ctx.save_for_backward(y, bias, scale, mean, var)
         ctx.eps, ctx.relu = eps, relu
         return out, scale, bias
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out, g_scale, g_bias):
-        y, out, scale, mean, var = ctx.saved_tensors
+        y, bias, scale, mean, var = ctx.saved_tensors
         dy, dkey_out, dskey_out = passport_epilogue_backward(
-            g_out, y, out, scale, mean, var, g_scale, g_bias, eps=ctx.eps,
+            g_out, y, bias, scale, mean, var, g_scale, g_bias, eps=ctx.eps,
             relu=ctx.relu)
         return dy, dkey_out, dskey_out, None, None, None, None
 
@@ -340,8 +367,8 @@ def _launch_forward(y, key_out, skey_out, mean, var, eps, relu):
         y.data_ptr(), key_out.data_ptr(), skey_out.data_ptr(),
         mean.data_ptr(), var.data_ptr(), out.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), n, c, h * w, geo.tile_c, geo.tile_rows, geo.threads,
-        geo.gap_len, geo.smem_bytes, int(geo.vector), float(eps),
-        int(bool(relu)), index, stream,
+        geo.gap_len, geo.smem_bytes, int(geo.vector), geo.row_split,
+        float(eps), int(bool(relu)), index, stream,
     )
     if err != 0:
         raise RuntimeError(f"passport_epilogue kernel launch failed: CUDA error {err}")
@@ -355,26 +382,45 @@ passport_epilogue.launches = 0
 passport_epilogue.form_launches = dict.fromkeys(_ENTRY, 0)
 
 
+_ARRIVALS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(index: int, stream: int) -> torch.Tensor:
+    """K2-bwd's arrival counters for CUDA device ``index`` and ``stream``
+    (a ``cuda_stream`` handle): MAX_C_TILES int32, zeroed once when first
+    asked for. Each launch counts its blocks' arrivals there and its last
+    blocks set them back to 0, so no call needs a fill kernel; launches on
+    one stream run in order, so they share the buffer."""
+    counters = _ARRIVALS.get((index, stream))
+    if counters is None:
+        counters = torch.zeros(MAX_C_TILES, dtype=torch.int32,
+                               device=torch.device("cuda", index))
+        _ARRIVALS[(index, stream)] = counters
+    return counters
+
+
 def passport_epilogue_backward(
-    g: torch.Tensor, y: torch.Tensor, out: torch.Tensor, scale: torch.Tensor,
+    g: torch.Tensor, y: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
     mean: torch.Tensor, var: torch.Tensor,
     g_scale: Optional[torch.Tensor] = None,
     g_bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
     relu: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2-bwd -> (dy, dkey_out, dskey_out), the gradient of the f32 epilogue
-    (see ``passport_epilogue_backward_reference``).
+    (see ``passport_epilogue_backward_reference``), with the ReLU mask
+    recomputed from y and the forward's scale and bias: the forward's own
+    ``out > 0``, bit for bit, in either version.
 
-    g, y and out: (N, C, H, W) f32; scale, mean, var, g_scale, g_bias:
+    g and y: (N, C, H, W) f32; bias, scale, mean, var, g_scale, g_bias:
     (C,) f32 (gradients None: zero; the three gradients are made
-    contiguous). CPU tensors take the plain version; CUDA tensors launch
-    the kernel and count the launch in
+    contiguous). CPU tensors take the plain version, with ``out`` from
+    ``passport_epilogue_reference``'s arithmetic; CUDA tensors launch the
+    kernel (one launch) and count it in
     ``passport_epilogue_backward.launches``.
     """
-    if y.ndim != 4 or g.shape != y.shape or out.shape != y.shape:
-        raise ValueError(f"passport_epilogue_backward: g {tuple(g.shape)}, y "
-                         f"{tuple(y.shape)} and out {tuple(out.shape)} must "
-                         "be one (N, C, H, W) shape")
+    if y.ndim != 4 or g.shape != y.shape:
+        raise ValueError(f"passport_epilogue_backward: g {tuple(g.shape)} and "
+                         f"y {tuple(y.shape)} must be one (N, C, H, W) shape")
     n, c, h, w = y.shape
     if g_scale is None:
         g_scale = torch.zeros(c, dtype=torch.float32, device=y.device)
@@ -382,20 +428,21 @@ def passport_epilogue_backward(
         g_bias = torch.zeros(c, dtype=torch.float32, device=y.device)
     # autograd may hand over expanded or strided gradients
     g, g_scale, g_bias = (t.contiguous() for t in (g, g_scale, g_bias))
-    tensors = (g, y, out, scale, mean, var, g_scale, g_bias)
+    tensors = (g, y, bias, scale, mean, var, g_scale, g_bias)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("passport_epilogue_backward takes float32 tensors "
                         "only (ROADMAP queue 2, K2-bwd: f32 only)")
     if any(t.device != y.device for t in tensors):
         raise ValueError("passport_epilogue_backward: all tensors must be on "
                          "one device")
-    if any(tuple(t.shape) != (c,) for t in tensors[3:]):
-        raise ValueError(f"passport_epilogue_backward: scale, mean, var and "
-                         f"the scale/bias gradients must be ({c},)")
+    if any(tuple(t.shape) != (c,) for t in tensors[2:]):
+        raise ValueError(f"passport_epilogue_backward: bias, scale, mean, var "
+                         f"and the scale/bias gradients must be ({c},)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("passport_epilogue_backward takes contiguous "
                          "tensors only")
     if y.device.type == "cpu":
+        out = _normalize_affine(y, scale, bias, mean, var, eps, relu)
         return passport_epilogue_backward_reference(
             g, y, out, scale, mean, var, g_scale, g_bias, eps=eps, relu=relu)
     if y.device.type != "cuda":
@@ -406,17 +453,18 @@ def passport_epilogue_backward(
     dkey_out = torch.empty((1, c, h, w), dtype=torch.float32, device=y.device)
     dskey_out = torch.empty_like(dkey_out)
     geo = backward_geometry(n, c, h * w, g.data_ptr(), y.data_ptr(),
-                            out.data_ptr(), dy.data_ptr())
+                            dy.data_ptr())
     partials = torch.empty((2, c, geo.grid[0]), dtype=torch.float32,
                            device=y.device)
     index, stream = _stream(y)
     err = _kernel("passport_epilogue_backward_f32", _BWD_ARGTYPES)(
-        g.data_ptr(), y.data_ptr(), out.data_ptr(), scale.data_ptr(),
+        g.data_ptr(), y.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         mean.data_ptr(), var.data_ptr(), g_scale.data_ptr(),
         g_bias.data_ptr(), dy.data_ptr(), dkey_out.data_ptr(),
         dskey_out.data_ptr(), partials[0].data_ptr(), partials[1].data_ptr(),
-        n, c, h * w, geo.tile_c, geo.tile_rows, geo.threads, int(geo.vector),
-        float(eps), int(bool(relu)), index, stream,
+        arrival_counters(index, stream).data_ptr(), n, c, h * w, geo.tile_c,
+        geo.tile_rows, geo.threads, int(geo.vector), float(eps),
+        int(bool(relu)), index, stream,
     )
     if err != 0:
         raise RuntimeError(f"passport_epilogue_backward kernel launch failed: "

@@ -2,8 +2,10 @@
 
 A V2 ResNet9 (passport_configs/resnet9_passport.json: the three layer4
 blocks) at 16x16 is initialised by flax, its BN statistics redrawn with
-numpy, and loaded into the port (``resnet_pair``); every attack runs on both
-sides over the same two batches of four images. Where the two packages draw
+numpy, and loaded into the port (``_pair``); every attack runs on both
+sides over the same two batches of four images. A V1 pair (scheme 1, as the
+attack CLIs rebuild it) goes through attack 3, and V3's trigger-set rows of
+pruning and flip are held to JAX's. Where the two packages draw
 differently (W7), the JAX draws are injected into the port: the ambiguity
 attack's 0.001-noise, the forge attack's U(-1, 1) passports, and the
 pretrained model from which attack 1 derives its fake passports. NumPy draws
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from deepipr_tpu.attacks import ambiguity as jax_ambiguity
+from deepipr_tpu.attacks import cli_common as jax_cli_common
 from deepipr_tpu.attacks import common as jax_common
 from deepipr_tpu.attacks import fake_passport as jax_fake
 from deepipr_tpu.attacks import flip as jax_flip
@@ -53,6 +56,7 @@ from deepipr_tpu_torch.interop.jax_params import (
 )
 from deepipr_tpu_torch.models.registry import build_model
 from deepipr_tpu_torch.ops.passport_epilogue import (
+    passport_epilogue_backward,
     passport_epilogue_backward_reference,
     passport_epilogue_reference,
 )
@@ -82,19 +86,26 @@ def _one_intra_op_thread():
     torch.set_num_threads(threads)
 
 
-def _pair(separate_stats=False):
-    """(JAX model, its TrainState, port model) on equal weights: a V2
-    ResNet9 with the resnet9 passport config."""
+def _pair(separate_stats=False, scheme=2):
+    """(JAX model, its TrainState, port model) on equal weights: a ResNet9
+    with the resnet9 passport config. Scheme 2 is V2 (private); so is
+    scheme 3, whose trigger set is data, not model. Scheme 1 is V1 as the
+    attack CLIs rebuild it (``load_attacked_model(learnable_affine=True)``,
+    attacks/cli_common.py:84,137 of either package): passport layers with
+    learnable scale and bias at their initial ones and zeros."""
     kw, _ = construct_passport_kwargs(
         load_passport_config(str(CONFIGS / "resnet9_passport.json")),
         "bn", "random", 0.1)
     if separate_stats:
         mark_separate_stats(kw)
+    private = scheme != 1
+    if not private:
+        jax_cli_common._mark_learnable(kw)
     jmodel = jax_resnet.ResNet9(num_classes=10, passport_kwargs=kw,
-                                private=True)
+                                private=private)
     v = numpy_variables(jmodel.init(RNGS, jnp.zeros((2, SIZE, SIZE, 3)),
                                     train=True), seed=4)
-    pmodel = build_model("resnet9", 10, passport_kwargs=kw, private=True,
+    pmodel = build_model("resnet9", 10, passport_kwargs=kw, private=private,
                          input_size=SIZE, device="cpu")
     load_jax_variables(pmodel, v)
     state = JaxTrainState.create(jax.tree.map(jnp.asarray, v), jax_sgd(0.01))
@@ -214,6 +225,47 @@ def test_flip_rows_match_jax(pair, batches):
                  acc=["acc"], close=["loss"])
 
 
+# ------------------------------------------------------ V3 trigger set
+
+@pytest.fixture(scope="module")
+def v3_pair():
+    return _pair(scheme=3)
+
+
+@pytest.mark.parametrize("attack", ["pruning", "flip"])
+def test_v3_trigger_set_rows_match_jax(v3_pair, batches, attack):
+    """V3: with a trigger-set loader (two batches of four images and their
+    target labels) each row also holds the black-box watermark accuracy,
+    ``wm_acc`` (public branch) and, in pruning, ``wm_acc_private``; those
+    within one image of eight of JAX's, the rest as the V2 tests hold it."""
+    jmodel, state, pmodel = v3_pair
+    rng = np.random.default_rng(13)
+    wm = [{"image": rng.normal(size=(BATCH, SIZE, SIZE, 3)).astype(
+               np.float32),
+           "label": rng.integers(0, 10, BATCH).astype(np.int32)}
+          for _ in range(2)]
+    percents = (0, 50)
+    if attack == "pruning":
+        jrows = jax_pruning.pruning_attack(jmodel, state, batches, SHAPE, True,
+                                           percents=percents, wm_data=wm)
+        rows = pruning.pruning_attack(pmodel, batches, SHAPE, True,
+                                      percents=percents, wm_data=wm)
+        exact = ["perc"]
+    else:
+        jrows = jax_flip.flip_attack(jmodel, state, batches, SHAPE, True,
+                                     JAX_PLPATHS, percents=percents, seed=1,
+                                     wm_data=wm)
+        rows = flip.flip_attack(pmodel, batches, SHAPE, True, PLPATHS,
+                                percents=percents, seed=1, wm_data=wm)
+        exact = ["perc", "similarity"]
+    wm_keys = sorted(k for k in jrows[0] if k.startswith("wm_"))
+    assert wm_keys == (["wm_acc", "wm_acc_private"] if attack == "pruning"
+                       else ["wm_acc"])
+    detect = [k for k in jrows[0] if k.startswith("detect_")]
+    _assert_rows(rows, jrows, exact=[*exact, *detect],
+                 acc=["acc", *wm_keys], close=["loss"])
+
+
 # ------------------------------------------------------------ attack 1
 
 def test_random_passport_attack_rows_match_jax(pair, batches):
@@ -300,31 +352,46 @@ def _jax_noise(orig_pp, seed):
     return _port_tree(draws)
 
 
-def test_ambiguity_attack_two_steps_match_jax(pair, batches):
-    """Two steps of attack 3 with 10 % of the signature flipped and JAX's
-    noise: the epoch's mean metrics at rtol 1e-3 and each fake passport's
-    update within UPDATE_TOL of its norm. The coefficient of the maximize
-    term defaults to JAX's 2.0 (W4)."""
+def _ambiguity_two_steps(pair, batches, private):
+    """Two steps of attack 3 on both sides; asserts the epoch's metrics and
+    each fake passport's update as the test below says."""
     jmodel, state, pmodel = pair
     seed = 0
     jfake, jhist = jax_ambiguity.ambiguity_attack(
-        jmodel, state, batches, batches, epochs=1, private=True,
+        jmodel, state, batches, batches, epochs=1, private=private,
         flipperc=0.1, lr=0.01, seed=seed)
     noise = _jax_noise(jax.device_get(state.passport), seed)
     fake, hist = ambiguity.ambiguity_attack(
-        pmodel, batches, batches, epochs=1, private=True, flipperc=0.1,
+        pmodel, batches, batches, epochs=1, private=private, flipperc=0.1,
         lr=0.01, seed=seed, noise=noise)
-    assert ambiguity.MAXIMIZE_COEF == 2.0
     (row,), (jrow,) = hist, jhist
     assert set(row) == set(jrow)
     for k, v in jrow.items():
         np.testing.assert_allclose(row[k], v, **METRIC_TOL, err_msg=k)
     want = _port_tree(jfake)
     orig = passports(pmodel)
+    assert set(want) == set(fake)
     for k, w in want.items():
         start = orig[k] + 0.001 * noise[k]
         err = ((fake[k] - w).norm() / (w - start).norm()).item()
         assert err <= UPDATE_TOL, (k, err)
+
+
+def test_ambiguity_attack_two_steps_match_jax(pair, batches):
+    """Two steps of attack 3 with 10 % of the signature flipped and JAX's
+    noise: the epoch's mean metrics at rtol 1e-3 and each fake passport's
+    update within UPDATE_TOL of its norm. The coefficient of the maximize
+    term defaults to JAX's 2.0 (W4)."""
+    assert ambiguity.MAXIMIZE_COEF == 2.0
+    _ambiguity_two_steps(pair, batches, private=True)
+
+
+def test_ambiguity_attack_v1_two_steps_match_jax(batches):
+    """The same two steps on V1 (scheme 1, private=False), the model the
+    attack CLIs rebuild with learnable affines: the passport layers'
+    derived affines, which the attack trains, take the forced-passport
+    path on both sides."""
+    _ambiguity_two_steps(_pair(scheme=1), batches, private=False)
 
 
 def test_ambiguity_scan_epoch_runs_the_input_stage(pair):
@@ -490,6 +557,11 @@ def _jax_xla_epilogue(y, key_out, skey_out, mean, var, relu):
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("shape", [(4, 16, 4, 4), (3, 40, 5, 3)])
 def test_epilogue_backward_reference_matches_jax_vjp(shape, relu):
+    """The plain K2-bwd, fed the forward's out, and the wrapper's CPU path,
+    which takes bias and derives out with the plain forward's arithmetic,
+    against JAX's vjp of the XLA epilogue. Two channels have bias exactly 0
+    and y at their mean in half their positions, so out is exactly 0 there
+    (the ReLU's derivative 0, as jax.nn.relu's)."""
     n, c, h, w = shape
     rng = np.random.default_rng(9)
     y, key_out, skey_out = (rng.normal(size=s).astype(np.float32)
@@ -498,6 +570,8 @@ def test_epilogue_backward_reference_matches_jax_vjp(shape, relu):
     var = rng.uniform(0.5, 2.0, c).astype(np.float32)
     g = rng.normal(size=shape).astype(np.float32)
     gs, gb = rng.normal(size=(2, c)).astype(np.float32)
+    key_out[:, :2] = 0.0
+    y[:, :2, ::2] = mean[:2, None, None]
 
     def nhwc(a):
         return jnp.asarray(a.transpose(0, 2, 3, 1))
@@ -516,6 +590,18 @@ def test_epilogue_backward_reference_matches_jax_vjp(shape, relu):
         torch.from_numpy(g), t[0], out, scale, t[3], t[4],
         torch.from_numpy(gs), torch.from_numpy(gb), relu=relu)
     for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy().transpose(0, 2, 3, 1),
+                                   np.asarray(b), rtol=1e-5, atol=1e-5)
+    zeros = (out == 0) & (t[0] == t[3].view(1, -1, 1, 1))
+    assert zeros[:, :2].sum() == n * 2 * len(range(0, h, 2)) * w
+
+    # the wrapper's CPU path: bias in place of out, the same result
+    _, _, bias = passport_epilogue_reference(*t, relu=relu)
+    wrapped = passport_epilogue_backward(
+        torch.from_numpy(g), t[0], bias, scale, t[3], t[4],
+        torch.from_numpy(gs), torch.from_numpy(gb), relu=relu)
+    for a, b, exact in zip(wrapped, want, got):
+        assert torch.equal(a, exact)
         np.testing.assert_allclose(a.numpy().transpose(0, 2, 3, 1),
                                    np.asarray(b), rtol=1e-5, atol=1e-5)
 

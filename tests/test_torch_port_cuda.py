@@ -24,8 +24,10 @@ from deepipr_tpu_torch.data.device_augment import (
 from deepipr_tpu_torch.models.registry import build_model
 from deepipr_tpu_torch.ops.fused_augment import augment_geometry, fused_augment
 from deepipr_tpu_torch.ops.passport_epilogue import (
+    arrival_counters,
     backward_geometry,
     epilogue_geometry,
+    fixed_order_gap,
     passport_epilogue,
     passport_epilogue_backward,
     passport_epilogue_backward_reference,
@@ -171,6 +173,8 @@ def test_epilogue_bf16_kernel_matches_plain_version(cuda, case):
     n, c, h, w = shape
     geo = epilogue_geometry(n, c, h * w, args[0].data_ptr(), 0, itemsize=2)
     assert geo.vector == (case in ("main", "batch1", "misaligned_out"))
+    if geo.vector:  # every thread of the tile carries y
+        assert geo.threads == geo.row_split * geo.tile_c * h * w // 8
     for relu in (True, False):
         before = passport_epilogue.launches
         got = passport_epilogue(*args, relu=relu)
@@ -182,10 +186,13 @@ def test_epilogue_bf16_kernel_matches_plain_version(cuda, case):
         for g_, w_ in zip(got[1:], want[1:]):
             assert g_.dtype == torch.float32
             torch.testing.assert_close(g_, w_, rtol=0, atol=1e-6)
-    # scale and bias equal the f32 form's on the same passport outputs
+    # scale and bias equal the f32 form's on the same passport outputs, and
+    # the plain version's fixed-order GAP, bit for bit
     f32 = passport_epilogue(args[0].float().contiguous(), *args[1:])
     for g_, w_ in zip(got[1:], f32[1:]):
         assert torch.equal(g_, w_)
+    assert torch.equal(got[1], fixed_order_gap(args[2]))
+    assert torch.equal(got[2], fixed_order_gap(args[1]))
 
 
 @pytest.mark.cuda
@@ -201,17 +208,26 @@ def test_epilogue_bf16_kernel_is_deterministic(cuda):
 
 # ---------------------------------------------------------------- K2-bwd
 
-def _backward_args(shape, device, seed=5):
-    """(g, y, out, scale, mean, var, g_scale, g_bias): out and scale from the
-    forward kernel on the same y, so the mask is the forward's own."""
+def _backward_args(shape, device, seed=5, relu=True):
+    """(g, y, bias, scale, mean, var, g_scale, g_bias) and K2's own out:
+    bias, scale and out from the forward kernel on the same y, so the
+    plain version's mask is the forward's own."""
     y, key_out, skey_out, mean, var = _epilogue_args(shape, device, seed)
-    out, scale, _ = passport_epilogue(y, key_out, skey_out, mean, var)
+    out, scale, bias = passport_epilogue(y, key_out, skey_out, mean, var,
+                                         relu=relu)
     gen = torch.Generator().manual_seed(seed + 1)
     c = shape[1]
     g = torch.randn(shape, generator=gen).to(device)
     g_scale = torch.randn(c, generator=gen).to(device)
     g_bias = torch.randn(c, generator=gen).to(device)
-    return [g, y, out, scale, mean, var, g_scale, g_bias]
+    return [g, y, bias, scale, mean, var, g_scale, g_bias], out
+
+
+def _counters_at_zero(t):
+    torch.cuda.synchronize()
+    index = t.device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    return int(arrival_counters(index, stream).count_nonzero()) == 0
 
 
 # dy is one product of the same f32 factors on both sides; the per-channel
@@ -231,26 +247,27 @@ def test_epilogue_backward_kernel_matches_plain_version(cuda, case, relu):
              "b1": (1, 512, 4, 4), "hw49": (8, 512, 7, 7),
              "ragged_tile": (3, 40, 5, 3)}.get(
         case, (256, 512, 4, 4))
-    args = _backward_args(shape, cuda)
-    if not relu:
-        args[2] = passport_epilogue(*_epilogue_args(shape, cuda, 5),
-                                    relu=False)[0]
+    args, out = _backward_args(shape, cuda, relu=relu)
     if case == "misaligned_y":
         args[1] = _misaligned(args[1])
     n, c, h, w = shape
     geo = backward_geometry(n, c, h * w, args[0].data_ptr(),
-                            args[1].data_ptr(), args[2].data_ptr())
+                            args[1].data_ptr())
     assert geo.vector == (case not in ("hw49", "ragged_tile",
                                        "misaligned_y"))
     before = passport_epilogue_backward.launches
     got = passport_epilogue_backward(*args, relu=relu)
+    assert _counters_at_zero(args[1])
     again = passport_epilogue_backward(*args, relu=relu)
-    torch.cuda.synchronize()
+    assert _counters_at_zero(args[1])
     assert passport_epilogue_backward.launches == before + 2
-    want = passport_epilogue_backward_reference(*args, relu=relu)
+    g, y, _, scale, mean, var, g_scale, g_bias = args
+    want = passport_epilogue_backward_reference(
+        g, y, out, scale, mean, var, g_scale, g_bias, relu=relu)
     for g_, a_ in zip(got, again):
         assert torch.equal(g_, a_)  # no float atomics: bit-identical
-    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=0)
+    # the recomputed mask is K2's out > 0: dy bit for bit
+    assert torch.equal(got[0], want[0])
     for g_, w_ in zip(got[1:], want[1:]):
         assert g_.shape == (1, c, h, w)
         torch.testing.assert_close(g_, w_, **BWD_SUM_TOL)
@@ -272,7 +289,7 @@ def test_epilogue_under_autograd_runs_both_kernels(cuda):
     g = torch.randn(shape, generator=gen)
     loss = (out * g.to(cuda)).sum() + scale.square().sum() + bias.sum()
     grads = torch.autograd.grad(loss, leaves)
-    torch.cuda.synchronize()
+    assert _counters_at_zero(y)
     assert passport_epilogue_backward.launches == bwd + 1
     assert passport_epilogue.launches == fwd + 1
 

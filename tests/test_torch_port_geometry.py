@@ -57,6 +57,7 @@ def test_python_limits_match_the_kernels():
     assert _constant("passport_epilogue.cu", "kMaxThreads") == k2.MAX_THREADS
     assert _constant("passport_epilogue.cu", "kStage") == k2.STAGE
     assert _constant("passport_epilogue.cu", "kMaxSmem") == k2.MAX_SMEM
+    assert _constant("passport_epilogue.cu", "kBwdUnroll") == k2.BWD_ROWS
     assert _constant("fused_augment.cu", "kMaxThreads") == k1.MAX_THREADS
     assert _constant("fused_augment.cu", "kMaxSmem") == k1.MAX_SMEM
 
@@ -70,8 +71,12 @@ EPILOGUE_SHAPES = sorted(set(SMOKE.CHECK_SHAPES) | {
 
 
 def _walk_epilogue(n, c, hw, geo):
-    """Count how often the kernel's loops write each element of out, stage
-    each passport element, and write each scale/bias entry."""
+    """Count how often the kernel's loops write each element of out, read
+    each passport element into the GAP, and write each scale/bias entry;
+    check that
+    every thread of a tile carries y where the tile has a position for each
+    (every vector tile at the main shapes) and that the GAP's stage length
+    is the one that fixes its order."""
     vw = 16 // geo.itemsize if geo.vector else 1
     written = np.zeros(n * c * hw, np.int32)
     staged = np.zeros(c * hw, np.int32)
@@ -82,26 +87,52 @@ def _walk_epilogue(n, c, hw, geo):
         assert tc >= 1
         positions = tc * hw // vw
         assert positions * vw == tc * hw
-        p = np.concatenate([np.arange(t, positions, geo.threads)
-                            for t in range(geo.threads)])
-        # a thread's channel is fixed: a vector never straddles two
-        assert np.array_equal(p * vw // hw, (p * vw + vw - 1) // hw)
-        span = (p[:, None] * vw + np.arange(vw)[None, :]).ravel()
+        # row_split groups of span threads; group g on rows g, g + split, ...
+        split = geo.row_split
+        span_threads = geo.threads // split
+        assert split == 1 or span_threads >= geo.tile_c * hw // vw
+        groups = [(t // span_threads,
+                   np.arange(t % span_threads, positions, span_threads))
+                  for t in range(geo.threads)]
+        # a full tile puts every thread on y, but for the rounding of a
+        # warp: one thread per position, or per STAGE passport floats with
+        # the rows split between the groups
+        if tc == geo.tile_c:
+            assert sum(g >= split or q.size == 0 for g, q in groups) < 32
+            if positions >= geo.threads:
+                assert all(q.size for _, q in groups)
+        for g, p in groups:
+            if g >= split or p.size == 0:
+                continue
+            # a thread's channel is fixed: a vector never straddles two
+            assert np.array_equal(p * vw // hw, (p * vw + vw - 1) // hw)
+            span = (p[:, None] * vw + np.arange(vw)[None, :]).ravel()
+            for rx in range(geo.grid[0]):
+                rows = np.arange(rx * geo.tile_rows + g,
+                                 min(n, (rx + 1) * geo.tile_rows), split)
+                idx = (rows[:, None] * c * hw + c0 * hw
+                       + span[None, :]).ravel()
+                np.add.at(written, idx, 1)
         for rx in range(geo.grid[0]):
-            rows = np.arange(rx * geo.tile_rows,
-                             min(n, (rx + 1) * geo.tile_rows))
-            assert rows.size >= 1
-            idx = (rows[:, None] * c * hw + c0 * hw + span[None, :]).ravel()
-            np.add.at(written, idx, 1)
+            assert rx * geo.tile_rows < n
             if rx == 0:
                 coefficients[c0:c0 + tc] += 1
-        # the GAP's stages: contiguous, channel-major when tc > 1
+        # the GAP: G lanes a channel, groups of channels a pass, stages of
+        # gap_len positions; lane g reads positions g, g + G, ... of each
+        assert geo.gap_len == min(hw, k2.MAX_GAP)
         assert tc == 1 or geo.gap_len == hw
-        for off in range(0, hw, geo.gap_len):
-            length = min(geo.gap_len, hw - off)
-            assert tc * length <= geo.tile_c * geo.gap_len
-            assert tc * length <= k2.STAGE * geo.threads
-            staged[c0 * hw + off:c0 * hw + off + tc * length] += 1
+        group = 1
+        while group < 32 and k2.STAGE * group < geo.gap_len:
+            group *= 2
+        for first in range(0, tc, geo.threads // group):
+            for t in range(geo.threads):
+                ch = first + t // group
+                if ch >= tc:
+                    continue
+                for off in range(0, hw, geo.gap_len):
+                    length = min(geo.gap_len, hw - off)
+                    j = np.arange(t % group, length, group)
+                    np.add.at(staged, (c0 + ch) * hw + off + j, 1)
     return written, staged, coefficients
 
 
@@ -127,8 +158,7 @@ def test_epilogue_geometry_paths_and_limits(shape, pointers):
     assert geo.threads % 32 == 0
     assert 1 <= geo.grid[0] <= MAX_GRID_X and 1 <= geo.grid[1] <= MAX_GRID_Y
     assert geo.smem_bytes <= k2.MAX_SMEM
-    assert geo.smem_bytes == 4 * (4 * geo.tile_c
-                                  + 2 * geo.tile_c * geo.gap_len)
+    assert geo.smem_bytes == 4 * 4 * geo.tile_c  # the coefficient rows
     # about TARGET_BLOCKS blocks, unless the batch is too small for it
     assert geo.grid[0] * geo.grid[1] <= 2 * k2.TARGET_BLOCKS or \
         geo.tile_rows == 1
@@ -138,7 +168,8 @@ def test_epilogue_geometry_paths_and_limits(shape, pointers):
 @pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
 def test_epilogue_geometry_bf16_covers_every_plane_once(shape, pointers):
     """The bf16 form: 8 elements per 16-byte vector, at least one thread per
-    STAGE passport floats, the same limits."""
+    STAGE passport floats, the rows split where that leaves threads without
+    a position, the same limits."""
     n, c, h, w = shape
     y_ptr, out_ptr = POINTERS_BF16[pointers]
     geo = k2.epilogue_geometry(n, c, h * w, y_ptr, out_ptr, itemsize=2)
@@ -148,6 +179,9 @@ def test_epilogue_geometry_bf16_covers_every_plane_once(shape, pointers):
     assert 32 <= geo.threads <= min(k2.MAX_THREADS, MAX_BLOCK)
     assert geo.threads % 32 == 0 and geo.smem_bytes <= k2.MAX_SMEM
     assert 1 <= geo.grid[0] <= MAX_GRID_X and 1 <= geo.grid[1] <= MAX_GRID_Y
+    if geo.vector:  # every thread of a full vector tile carries y
+        positions = geo.tile_c * h * w // 8
+        assert geo.threads - geo.row_split * positions < 32
     written, staged, coefficients = _walk_epilogue(n, c, h * w, geo)
     assert (written == 1).all()
     assert (staged == 1).all()
@@ -156,12 +190,14 @@ def test_epilogue_geometry_bf16_covers_every_plane_once(shape, pointers):
 
 def test_epilogue_geometry_bf16_at_the_main_shape():
     """(256, 512, 4, 4) in bf16: the same 32-channel tiles (1 KB a row), 64
-    threads of 8 elements, 128 threads for the 512 passport floats."""
+    positions of 8 elements, 128 threads for the GAP (4 lanes for each of
+    the 32 channels), in two groups of 64 that take the block's 8 rows in
+    turn: every thread on y, 4 rows each."""
     geo = k2.epilogue_geometry(256, 512, 16, *POINTERS["aligned"],
                                itemsize=2)
     assert geo == k2.EpilogueGeometry(
         grid=(32, 16), threads=128, tile_c=32, tile_rows=8, gap_len=16,
-        smem_bytes=4608, vector=True, itemsize=2)
+        smem_bytes=512, vector=True, itemsize=2, row_split=2)
 
 
 def test_epilogue_geometry_at_the_main_shape():
@@ -170,7 +206,7 @@ def test_epilogue_geometry_at_the_main_shape():
     geo = k2.epilogue_geometry(256, 512, 16, *POINTERS["aligned"])
     assert geo == k2.EpilogueGeometry(
         grid=(32, 16), threads=128, tile_c=32, tile_rows=8, gap_len=16,
-        smem_bytes=4608, vector=True)
+        smem_bytes=512, vector=True)
 
 
 # -------------------------------------------------------------- K2-bwd
@@ -178,14 +214,19 @@ def test_epilogue_geometry_at_the_main_shape():
 BACKWARD_SHAPES = sorted(set(SMOKE.BWD_SHAPES) | set(EPILOGUE_SHAPES))
 
 
-def _walk_backward(n, c, hw, geo):
-    """Count how often bwd_partial writes each element of dy and each
-    (channel, row block) partial, and check that the threads its per-channel
+def _walk_backward(n, c, hw, geo, order):
+    """Count how often the kernel writes each element of dy and each
+    (channel, row block) partial; check that the threads its per-channel
     reduction reads for a channel, [ch * per, (ch + 1) * per), are exactly
-    the threads whose positions hold that channel."""
+    the threads whose positions hold that channel (in one warp where the
+    shuffle path takes them). Then let each channel tile's blocks arrive in
+    ``order`` (a seeded draw) at the tile's counter: the block that sees
+    grid[0] - 1 finishes, reads every partial of its channels and writes
+    their dkey_out/dskey_out planes, and sets the counter back to 0."""
     vw = 4 if geo.vector else 1
     written = np.zeros(n * c * hw, np.int32)
     partials = np.zeros((c, geo.grid[0]), np.int32)
+    planes = np.zeros(c * hw, np.int32)
     per = min(hw // vw, geo.threads)
     for cy in range(geo.grid[1]):
         c0 = cy * geo.tile_c
@@ -204,6 +245,8 @@ def _walk_backward(n, c, hw, geo):
             assert owners[ch] <= read
             # the other threads read hold no position (their sums are 0)
             assert all(not owners[o] & read for o in owners if o != ch)
+            if 32 % per == 0:  # the shuffle path: one warp's lanes
+                assert ch * per // 32 == ((ch + 1) * per - 1) // 32
         p = np.arange(positions)
         span = (p[:, None] * vw + np.arange(vw)[None, :]).ravel()
         for rx in range(geo.grid[0]):
@@ -213,7 +256,18 @@ def _walk_backward(n, c, hw, geo):
             idx = (rows[:, None] * c * hw + c0 * hw + span[None, :]).ravel()
             np.add.at(written, idx, 1)
             partials[c0:c0 + tc, rx] += 1
-    return written, partials
+        counter, finishers = 0, 0
+        for rx in order.permutation(geo.grid[0]):
+            last = counter == geo.grid[0] - 1
+            counter += 1
+            if last:
+                finishers += 1
+                # every partial of the tile is in place before it is read
+                assert (partials[c0:c0 + tc] == 1).all()
+                planes[c0 * hw:(c0 + tc) * hw] += 1
+                counter = 0
+        assert finishers == 1 and counter == 0
+    return written, partials, planes
 
 
 @pytest.mark.parametrize("pointers", sorted(POINTERS))
@@ -224,18 +278,31 @@ def test_backward_geometry_covers_every_element_once(shape, pointers):
     assert geo.vector == ((h * w) % 4 == 0 and pointers == "aligned")
     assert 32 <= geo.threads <= min(k2.MAX_THREADS, MAX_BLOCK)
     assert geo.threads % 32 == 0
-    assert 1 <= geo.grid[0] <= MAX_GRID_X and 1 <= geo.grid[1] <= MAX_GRID_Y
-    written, partials = _walk_backward(n, c, h * w, geo)
+    assert 1 <= geo.grid[0] <= MAX_GRID_X
+    assert 1 <= geo.grid[1] <= min(MAX_GRID_Y, k2.MAX_C_TILES)
+    # every thread has BWD_ROWS rows in flight, unless the batch is smaller
+    assert geo.tile_rows >= min(n, k2.BWD_ROWS)
+    written, partials, planes = _walk_backward(
+        n, c, h * w, geo, np.random.default_rng(n * c + h * w))
     assert (written == 1).all()
     assert (partials == 1).all()
+    assert (planes == 1).all()
 
 
 def test_backward_geometry_at_the_attack_batch():
     """The attack CLIs' (64, 512, 4, 4): the forward's 32-channel spans, one
-    float4 a thread, 2 rows a block, 32 x 16 = 512 blocks."""
+    float4 a thread, 4 rows a block (4 rows x 2 streams x 16 bytes in
+    flight a thread), 16 x 16 = 256 blocks."""
     geo = k2.backward_geometry(64, 512, 16, *POINTERS["aligned"])
+    assert geo == k2.BackwardGeometry(grid=(16, 16), threads=128, tile_c=32,
+                                      tile_rows=4, vector=True)
+
+
+def test_backward_geometry_at_the_main_shape():
+    """(256, 512, 4, 4): 8 rows a block, 32 x 16 = 512 blocks."""
+    geo = k2.backward_geometry(256, 512, 16, *POINTERS["aligned"])
     assert geo == k2.BackwardGeometry(grid=(32, 16), threads=128, tile_c=32,
-                                      tile_rows=2, vector=True)
+                                      tile_rows=8, vector=True)
 
 
 # ------------------------------------------------------------------ K1
