@@ -47,6 +47,28 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    and K2-bwd launches per ambiguity step; the CE and sign-loss gradient on
    every fake passport; one ambiguity step and one forge step on the card
    against the CPU. CSVs under ``logs/``.
+9. AlexNet serving (``alexnet_serve``): V1 and V2 AlexNet at CIFAR-10 width
+   (passport_configs/alexnet_passport.json: features_4-6, K2 at
+   (N,384,8,8) and (N,256,8,8)) from ``--seed``, f32 and bf16, through
+   phase 4's checks with 3 K2 launches per passport forward (V1 on either
+   branch, V2 on the private one), their throughput; then one V2 private
+   forward of the ImageNet variant (1000 classes, 224 px, K2 at 13x13, the
+   scalar path) card vs CPU in f32 and bf16.
+10. AlexNet through the entry points (``alexnet_cli``): training.sh's first
+    recipe at reduced length, ``cli.train_v1`` scheme 0 for 1 epoch, then
+    V1 (``--train-passport --sign-loss 0.1 --key-type shuffle
+    --epoch-scan --pallas-input``) and V2 (``cli.train_v23``) for 5 epochs
+    each from its last.ckpt, batch 256 over 12,800 images, with launch
+    counts (K1 every step, K2 in validation and signature detection); the
+    loss falls, the signature is embedded, and each best.ckpt verifies in a
+    fresh model.
+11. AlexNet attacks (``alexnet_attacks``), the attack CLIs at their
+    defaults (--arch alexnet --scheme 1) on the V1 best.ckpt: pruning,
+    flip ``--fidxs 4,5,6``, attack 3 for 1 epoch; the forge attack (V2
+    only) ``--steps 50`` on the V2 best.ckpt; 3 K2 and 3 K2-bwd launches
+    an ambiguity step, and one ambiguity step card vs CPU.
+
+Each phase's wall time is printed on a line of its own.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
@@ -56,6 +78,7 @@ an error before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -78,7 +101,16 @@ MAIN_SHAPE = (REQUEST_BATCH, 512, 4, 4)  # every passport block of the path
 # multiple of the channel tile
 CHECK_SHAPES = [MAIN_SHAPE, (1, 512, 4, 4), (1024, 512, 4, 4),
                 (4, 128, 8, 8), (2, 256, 16, 16), (2, 64, 56, 56),
-                (2, 128, 28, 28), (8, 512, 7, 7), (3, 40, 5, 3)]
+                (2, 128, 28, 28), (8, 512, 7, 7), (3, 40, 5, 3),
+                # AlexNet: features_4 (384 channels) and _5/_6 (256) at 8x8
+                # (CIFAR) at the request batch and batch 1, and at 13x13
+                # (ImageNet, 224 px: the scalar path, tiles of 3 channels,
+                # a ragged last tile at 256)
+                (256, 384, 8, 8), (256, 256, 8, 8), (1, 384, 8, 8),
+                (1, 256, 8, 8), (64, 384, 13, 13), (64, 256, 13, 13)]
+# K2 and K2-bwd timed at AlexNet's shapes besides the main ones
+ALEXNET_TIMED = [(256, 384, 8, 8), (256, 256, 8, 8), (64, 384, 13, 13)]
+ALEXNET_BWD_TIMED = [(64, 384, 8, 8), (64, 256, 8, 8)]
 # the card against the plain version of the same arithmetic: the GAP sums
 # in another order (tests/test_pallas.py's tolerance)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -97,7 +129,10 @@ LOGITS_TOL = dict(rtol=1e-3, atol=2e-4)
 # the per-channel sums run in another order
 # (tests/test_torch_port_cuda.py's tolerance)
 BWD_SHAPES = [(64, 512, 4, 4), MAIN_SHAPE, (1024, 512, 4, 4), (1, 512, 4, 4),
-              (8, 512, 7, 7), (3, 40, 5, 3)]
+              (8, 512, 7, 7), (3, 40, 5, 3),
+              # AlexNet's features_4 and _5/_6 at the attack CLIs' batch and
+              # the forge attack's batch 1
+              (64, 384, 8, 8), (64, 256, 8, 8), (1, 384, 8, 8)]
 BWD_SUM_TOL = dict(rtol=1e-4, atol=1e-4)
 # K1 normalized against its plain version: tests/test_pallas_augment.py's
 # tolerance (1 ulp); the pixels before normalizing must agree bit for bit
@@ -145,10 +180,33 @@ CLI_COMMON = ["--arch", "resnet", "--dataset", "synthetic",
               "--batch-size", str(TRAIN_BATCH), "--logdir", CLI_LOGDIR]
 CLI_V2 = ["--passport-config", "passport_configs/resnet18_passport.json",
           "--key-type", "shuffle", "--bf16", "--epoch-scan", "--pallas-input"]
+# AlexNet: the CLIs' default architecture and passport config
+# (features_4-6); the ImageNet variant's serving check at 224 px
+ALEXNET_CONFIG = "passport_configs/alexnet_passport.json"
+ALEXNET_LOGDIR = os.path.join("build", "chip_smoke_alexnet")
+ALEXNET_CLI = ["--arch", "alexnet", "--dataset", "synthetic", "--batch-size",
+               str(TRAIN_BATCH), "--logdir", ALEXNET_LOGDIR]
+ALEXNET_PASSPORT = ["--passport-config", ALEXNET_CONFIG, "--key-type",
+                    "shuffle", "--epoch-scan", "--pallas-input"]
+# training.sh's 200, cut for time. On the card V1's epoch-mean sign
+# accuracy read 0.99997 after 2 epochs and 0.99990 / 0.99987 after 2 / 3:
+# at the recipe's constant lr a few scales near 0 still cross it in some
+# steps, while every end-of-epoch detection is already 1.0
+ALEXNET_EPOCHS = 5
+ALEXNET_K2 = 3  # K2 launches of a passport forward: features_4, 5 and 6
+IMAGENET_SIZE, IMAGENET_BATCH = 224, 64
 
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Log the wall time of the phase run inside, on a line of its own."""
+    t = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t:.1f} s wall")
 
 
 # ----------------------------------------------------------- environment
@@ -671,8 +729,11 @@ def time_augment(timer: DeviceTimer, case, smi: str,
 # ---------------------------------------------------------------- model
 
 @torch.no_grad()
-def random_model(seed: int, dtype=None):
-    """ResNet18Private on the CPU in compute dtype ``dtype``: weights,
+def random_model(seed: int, dtype=None, arch: str = "resnet18",
+                 private: bool = True, num_classes: int = 10,
+                 size: int = 32):
+    """ResNet18Private (or ``arch`` with its passport config, V1 where
+    ``private`` is false) on the CPU in compute dtype ``dtype``: weights,
     passports and BN running stats from ``seed``, each signature ``b`` set
     to the sign of its derived scale (the signature a trained model
     carries)."""
@@ -684,21 +745,25 @@ def random_model(seed: int, dtype=None):
         load_passport_config,
     )
 
-    kw, plkeys = construct_passport_kwargs(
-        load_passport_config("passport_configs/resnet18_passport.json"),
-        "bn", "random", 0.1)
-    model = build_model("resnet18", 10, norm_type="bn", passport_kwargs=kw,
-                        private=True, seed=seed, dtype=dtype, device="cpu")
+    config = (ALEXNET_CONFIG if arch == "alexnet"
+              else "passport_configs/resnet18_passport.json")
+    kw, plkeys = construct_passport_kwargs(load_passport_config(config),
+                                           "bn", "random", 0.1)
+    model = build_model(arch, num_classes, norm_type="bn", passport_kwargs=kw,
+                        private=private, input_size=size, seed=seed,
+                        dtype=dtype, device="cpu")
     gen = torch.Generator().manual_seed(seed + 1)
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.running_mean.normal_(0.0, 0.1, generator=gen)
             m.running_var.uniform_(0.5, 2.0, generator=gen)
-    for path, aux in derived_affines(model, (1, 32, 32, 3), True).items():
+    for path, aux in derived_affines(model, (1, size, size, 3),
+                                     private).items():
         block = model.get_submodule(path.replace("/", "."))
         block.b.copy_(torch.where(aux["scale"] >= 0, 1.0, -1.0))
-    log(f"model: ResNet18Private {dtype or torch.float32}, CIFAR-10 32x32x3, "
-        f"passports in {plkeys}")
+    log(f"model: {arch} {'V2' if private else 'V1'} "
+        f"{dtype or torch.float32}, {num_classes} classes, "
+        f"{size}x{size}x3, passports in {plkeys}")
     return model
 
 
@@ -721,27 +786,37 @@ def request_batches(count: int, seed: int):
 
 
 def serve_path(gpu_model, cpu_model, batches, forged, launches,
-               form: str = "passport_epilogue") -> dict:
+               form: str = "passport_epilogue", private_model: bool = True,
+               per_forward: int = 5) -> dict:
     """The serving and verification path on the card, checked against the
     CPU. ``launches()`` reads the kernels' launch counts; ``form`` names the
-    K2 form the model's dtype takes. A bf16 model's private logits are held
-    to the CPU's norm-wise (BF16_LOGITS_NORM_TOL) and its forged per-layer
-    detection rates within BF16_FORGED_TOL of the CPU's; an f32 model's
-    elementwise and exactly."""
+    K2 form the model's dtype takes, ``per_forward`` its launches in a
+    passport forward: the private branch's of a V2 model
+    (``private_model``), either branch's of a V1 model. A bf16 model's
+    private logits are held to the CPU's norm-wise (BF16_LOGITS_NORM_TOL)
+    and its forged per-layer detection rates within BF16_FORGED_TOL of the
+    CPU's; an f32 model's elementwise and exactly."""
     bf16 = form.endswith("bf16")
     from deepipr_tpu_torch.serve import Predictor, verify_ownership
-    from deepipr_tpu_torch.train.steps import make_dual_eval_step, run_dual_eval
+    from deepipr_tpu_torch.train.steps import (
+        make_dual_eval_step,
+        make_eval_step,
+        run_dual_eval,
+        run_eval,
+    )
 
     public = Predictor(gpu_model, ind=0)
     private = Predictor(gpu_model, ind=1)
     for batch in batches:
-        logits0 = public.logits(batch["image"])
         before = launches()[form]
+        logits0 = public.logits(batch["image"])
+        between = launches()[form]
         logits1 = private.logits(batch["image"])
-        per_forward = launches()[form] - before
-        if per_forward != 5:
-            raise AssertionError(f"{per_forward} epilogue launches in one "
-                                 "private forward, expected 5")
+        counted = (between - before, launches()[form] - between)
+        if counted != (0 if private_model else per_forward, per_forward):
+            raise AssertionError(f"{counted} epilogue launches in a public "
+                                 "and a private forward, expected "
+                                 f"{per_forward} in each passport forward")
         for logits in (logits0, logits1):
             if logits.shape != (REQUEST_BATCH, 10) or \
                     not torch.isfinite(logits).all():
@@ -759,11 +834,16 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
         torch.testing.assert_close(gpu_logits, cpu_logits, **LOGITS_TOL)
     log("Predictor: public and private branches answered "
         f"{len(batches)} batches of {REQUEST_BATCH}; private logits match "
-        f"the CPU run; 5 {form} launches per private forward")
+        f"the CPU run; {per_forward} {form} launches per passport forward")
 
-    step = make_dual_eval_step(gpu_model)
-    metrics = run_dual_eval(step, batches)
-    cpu_sums = make_dual_eval_step(cpu_model, device="cpu")(batches[0])
+    if private_model:
+        step = make_dual_eval_step(gpu_model)
+        metrics = run_dual_eval(step, batches)
+        cpu_sums = make_dual_eval_step(cpu_model, device="cpu")(batches[0])
+    else:
+        step = make_eval_step(gpu_model)
+        metrics = run_eval(step, batches)
+        cpu_sums = make_eval_step(cpu_model, device="cpu")(batches[0])
     gpu_sums = step(batches[0])
     for k, v in cpu_sums.items():
         if bf16:  # one bf16 logit flip moves a correct count by one
@@ -773,15 +853,18 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
             torch.testing.assert_close(gpu_sums[k].cpu().double(),
                                        v.double(), rtol=1e-3, atol=1e-2)
     if not all(np.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"non-finite dual-eval metrics {metrics}")
-    log(f"dual eval over {len(batches)} batches: {metrics}")
+        raise AssertionError(f"non-finite eval metrics {metrics}")
+    log(f"{'dual ' if private_model else ''}eval over {len(batches)} "
+        f"batches: {metrics}")
 
-    genuine = verify_ownership(gpu_model, (1, 32, 32, 3), private=True)
+    genuine = verify_ownership(gpu_model, (1, 32, 32, 3),
+                               private=private_model)
     if not (genuine["verified"] and genuine["detection_rate"] == 1.0):
         raise AssertionError(f"genuine passports did not verify: {genuine}")
-    fake = verify_ownership(gpu_model, (1, 32, 32, 3), private=True,
+    fake = verify_ownership(gpu_model, (1, 32, 32, 3), private=private_model,
                             claimed_passports=forged)
-    fake_cpu = verify_ownership(cpu_model, (1, 32, 32, 3), private=True,
+    fake_cpu = verify_ownership(cpu_model, (1, 32, 32, 3),
+                                private=private_model,
                                 claimed_passports=forged, device="cpu")
     if fake["verified"] or not fake["detection_rate"] < 0.7:
         raise AssertionError(f"forged passports verified: {fake}")
@@ -797,7 +880,8 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
     return metrics
 
 
-def throughput(gpu_model, smi: str, label: str = "f32 (TF32 off)") -> None:
+def throughput(gpu_model, smi: str, label: str = "f32 (TF32 off)",
+               private: bool = True) -> None:
     from deepipr_tpu_torch.serve import Predictor, verify_ownership
 
     gen = torch.Generator().manual_seed(7)
@@ -820,7 +904,7 @@ def throughput(gpu_model, smi: str, label: str = "f32 (TF32 off)") -> None:
     times = []
     for _ in range(20):
         t = time.perf_counter()
-        verify_ownership(gpu_model, (1, 32, 32, 3), private=True)
+        verify_ownership(gpu_model, (1, 32, 32, 3), private=private)
         times.append((time.perf_counter() - t) * 1e3)
     log(f"latency: verify_ownership {label} median "
         f"{statistics.median(times):.3f} ms over 20 calls [{smi}]")
@@ -857,9 +941,10 @@ def profiled(fn, reps: int, what: str, smi: str, top: int = 12) -> dict:
     return {name: us / reps for name, us in by_name.items()}
 
 
-def where_time_goes(gpu_model, smi: str, reps: int = 5) -> None:
+def where_time_goes(gpu_model, smi: str, reps: int = 5,
+                    per_forward: int = 5) -> None:
     """Device time by kernel over ``reps`` forwards of each branch at batch
-    256."""
+    256; ``per_forward``: K2's launches in the ind=1 forward."""
     from deepipr_tpu_torch.serve import Predictor
 
     x = torch.randn((REQUEST_BATCH, 32, 32, 3),
@@ -871,8 +956,9 @@ def where_time_goes(gpu_model, smi: str, reps: int = 5) -> None:
         us = profiled(lambda: pred.logits(x), reps,
                       f"ind={ind} forward, batch {REQUEST_BATCH}", smi)
     k2 = sum(t for name, t in us.items() if "passport_epilogue" in name)
-    log(f"  K2 passport_epilogue: {k2:.1f} us per private forward (5 "
-        f"launches), {100 * k2 / sum(us.values()):.2f} % of its device time")
+    log(f"  K2 passport_epilogue: {k2:.1f} us per ind=1 forward "
+        f"({per_forward} launches), {100 * k2 / sum(us.values()):.2f} % of "
+        "its device time")
 
 
 # ------------------------------------------------------------- training
@@ -1270,20 +1356,25 @@ def attack_path(best: str, smi: str, launches, reset) -> dict:
     return counts
 
 
-def ambiguity_checks(best: str, launches, reset) -> float:
-    """On the V2 best.ckpt: K2 and K2-bwd launches per ambiguity step at
-    batch 64 and 256; the CE and sign-loss gradient (maximize coefficient
-    0) finite and non-zero on every fake passport, and within UPDATE_TOL of
-    its norm of the CPU's on the same weights and batch; then one ambiguity
-    step and one forge step on the card against the same steps on the CPU,
-    from the same weights and draws: metrics at TRAIN_TOL, each passport's
-    update within UPDATE_TOL of its norm. Returns the worst update error."""
+def ambiguity_checks(argv: list, launches, reset, private: bool = True,
+                     per_step: int = 5,
+                     batch_sizes=(ATTACK_BATCH, REQUEST_BATCH),
+                     forge_step: bool = True) -> float:
+    """On the checkpoint the attack CLIs' ``argv`` name (by default the V2
+    best.ckpt): K2 and K2-bwd launches per ambiguity step (``per_step``
+    each) at ``batch_sizes``; the CE and sign-loss gradient (maximize
+    coefficient 0) finite and non-zero on every fake passport, and within
+    UPDATE_TOL of its norm of the CPU's on the same weights and batch; then
+    one ambiguity step and (``forge_step``) one forge step on the card
+    against the same steps on the CPU, from the same weights and draws:
+    metrics at TRAIN_TOL, each passport's update within UPDATE_TOL of its
+    norm. Returns the worst update error."""
     from deepipr_tpu_torch.attacks import ambiguity, forge
     from deepipr_tpu_torch.attacks.cli_common import load_attacked_model
     from deepipr_tpu_torch.cli import passport_attack_3
     from deepipr_tpu_torch.serve import passports
 
-    args = passport_attack_3.build_parser().parse_args(attack_argv(best))
+    args = passport_attack_3.build_parser().parse_args(argv)
     models = {dev: load_attacked_model(args, device=dev)[0]
               for dev in ("cpu", "cuda")}
     images = request_batches(1, 5)[0]
@@ -1312,13 +1403,13 @@ def ambiguity_checks(best: str, launches, reset) -> float:
         signature, orig, fake, x, y = step_inputs(dev, batch)
         start = {k: v.detach().clone() for k, v in fake.items()}
         step = ambiguity.make_ambiguity_step(
-            models[dev], signature, True,
+            models[dev], signature, private,
             ambiguity.PassportOptimizer(fake, 0.01), coef)
         metrics = step(fake, orig, x, y)
         return ({k: (fake[k] - start[k]).cpu() for k in fake},
                 {k: v.item() for k, v in metrics.items()})
 
-    for n in (ATTACK_BATCH, REQUEST_BATCH):
+    for n in batch_sizes:
         batch = {"image": images["image"][:n], "label": images["label"][:n]}
         reset()
         ambiguity_step("cuda", batch)
@@ -1326,7 +1417,7 @@ def ambiguity_checks(best: str, launches, reset) -> float:
         log(f"ambiguity step at batch {n}: K2 {counts['passport_epilogue']}, "
             f"K2-bwd {counts['passport_epilogue_backward']} launches")
         if (counts["passport_epilogue"], counts["passport_epilogue_backward"]
-                ) != (5, 5):
+                ) != (per_step, per_step):
             raise AssertionError(f"ambiguity step launches {counts}")
 
     # the CE and sign-loss terms alone (the gradient that flows through
@@ -1334,7 +1425,7 @@ def ambiguity_checks(best: str, launches, reset) -> float:
     grads = {}
     for dev in ("cpu", "cuda"):
         signature, orig, fake, x, y = step_inputs(dev, parity)
-        loss, _ = ambiguity.ambiguity_loss(models[dev], signature, True,
+        loss, _ = ambiguity.ambiguity_loss(models[dev], signature, private,
                                            fake, orig, x, y, coef=0.0)
         grads[dev] = {k: g.cpu() for k, g in zip(
             fake, torch.autograd.grad(loss, list(fake.values())))}
@@ -1355,13 +1446,13 @@ def ambiguity_checks(best: str, launches, reset) -> float:
     upd, met = {}, {}
     for dev in ("cpu", "cuda"):
         upd[dev], met[dev] = ambiguity_step(dev, parity)
-    for dev in ("cpu", "cuda"):
+    for dev in ("cpu", "cuda") if forge_step else ():
         pp, _, hist = forge.forge_attack(models[dev], (1, 32, 32, 3),
                                          flipperc=0.5, steps=1, seed=0,
                                          log_every=1, init=init)
         upd[f"forge {dev}"] = {k: (v.cpu() - init[k]) for k, v in pp.items()}
         met[f"forge {dev}"] = {"mse": hist[0]["mse"]}
-    for kind in ("", "forge "):
+    for kind in ("", "forge ") if forge_step else ("",):
         cpu, gpu = met[f"{kind}cpu"], met[f"{kind}cuda"]
         bad = [k for k, v in cpu.items()
                if not abs(gpu[k] - v) <= TRAIN_TOL["atol"]
@@ -1382,7 +1473,228 @@ def ambiguity_checks(best: str, launches, reset) -> float:
     return worst[name]
 
 
+# ------------------------------------------------------------- AlexNet
+
+def alexnet_serve(seed: int, smi: str, launches, reset) -> dict:
+    """Phase 4's serving path on V1 and V2 AlexNet (CIFAR-10 width, K2 at
+    (N,384,8,8) and (N,256,8,8)) in f32 and bf16, with 3 K2 launches in
+    each passport forward, and their throughput; then the ImageNet
+    variant. Returns the launches of each K2 form over the checked path."""
+    batches = request_batches(3, seed)
+    counts = {"passport_epilogue": 0, "passport_epilogue_bf16": 0}
+    for private in (False, True):
+        for form, dtype in (("passport_epilogue", None),
+                            ("passport_epilogue_bf16", BF16)):
+            cpu_model = random_model(seed, dtype, "alexnet", private)
+            gpu_model = copy.deepcopy(cpu_model).to("cuda")
+            forged = forged_passports(cpu_model, seed + 2)
+            reset()
+            serve_path(gpu_model, cpu_model, batches, forged, launches, form,
+                       private_model=private, per_forward=ALEXNET_K2)
+            got = launches()
+            if not got[form] or sum(got.values()) != got[form]:
+                raise AssertionError(f"{form} did not carry the AlexNet "
+                                     f"serving path: {got}")
+            counts[form] += got[form]
+            label = (f"AlexNet {'V2' if private else 'V1'} "
+                     f"{'bf16' if dtype else 'f32 (TF32 off)'}")
+            throughput(gpu_model, smi, label, private)
+            where_time_goes(gpu_model, smi, per_forward=ALEXNET_K2)
+            del gpu_model, cpu_model
+    for form, dtype in (("passport_epilogue", None),
+                        ("passport_epilogue_bf16", BF16)):
+        reset()
+        imagenet_forward(seed, form, dtype, launches)
+        counts[form] += launches()[form]
+    log(f"AlexNet serving-path launches: {counts}")
+    return counts
+
+
+def imagenet_forward(seed: int, form: str, dtype, launches) -> None:
+    """One private forward of a V2 ImageNet AlexNet (1000 classes, 224 px:
+    K2 at (64,384,13,13) and (64,256,13,13), the scalar path) through
+    Predictor, against the CPU: f32 at LOGITS_TOL on the whole batch; bf16
+    within BF16_LOGITS_NORM_TOL of the norm on 8 rows (eval-mode rows are
+    independent, and bf16 convolutions are slow on the CPU)."""
+    from deepipr_tpu_torch.serve import Predictor
+
+    cpu_model = random_model(seed, dtype, "alexnet", True, num_classes=1000,
+                             size=IMAGENET_SIZE)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    if tuple(gpu_model.features_4.key.shape) != (1, 192, 13, 13):
+        raise AssertionError("the ImageNet variant's features_4 is not 13x13")
+    x = torch.randn((IMAGENET_BATCH, IMAGENET_SIZE, IMAGENET_SIZE, 3),
+                    generator=torch.Generator().manual_seed(seed + 9))
+    before = launches()[form]
+    gpu_logits = Predictor(gpu_model, ind=1).logits(x).cpu()
+    if launches()[form] - before != ALEXNET_K2:
+        raise AssertionError(f"ImageNet private forward: "
+                             f"{launches()[form] - before} {form} launches")
+    rows = IMAGENET_BATCH if dtype is None else 8
+    cpu_logits = Predictor(cpu_model, ind=1, device="cpu").logits(x[:rows])
+    if gpu_logits.shape != (IMAGENET_BATCH, 1000) or \
+            not torch.isfinite(gpu_logits).all():
+        raise AssertionError("non-finite or misshapen ImageNet logits")
+    if dtype is None:
+        torch.testing.assert_close(gpu_logits, cpu_logits, **LOGITS_TOL)
+        err = (gpu_logits - cpu_logits).abs().max().item()
+    else:
+        err = ((gpu_logits[:rows] - cpu_logits).norm()
+               / cpu_logits.norm()).item()
+        if err > BF16_LOGITS_NORM_TOL:
+            raise AssertionError(f"bf16 ImageNet logits differ from the "
+                                 f"CPU's by {err} of their norm")
+    log(f"ImageNet AlexNet V2 private forward, batch {IMAGENET_BATCH}, "
+        f"{dtype or torch.float32}: {ALEXNET_K2} {form} launches at 13x13; "
+        f"card vs CPU on {rows} rows: {err:.3g} "
+        f"({'largest error' if dtype is None else 'of the norm'})")
+
+
+def alexnet_cli(smi: str, launches, reset):
+    """training.sh's first recipe at reduced length, in-process: scheme 0
+    (train_v1 at --arch alexnet) for 1 epoch, then V1 (train_v1
+    --train-passport, shuffle keys from its last.ckpt, --epoch-scan
+    --pallas-input) and V2 (train_v23, the same keys and input stage) for
+    ALEXNET_EPOCHS each, batch 256 over 12,800 images. Each passport run:
+    K1 f32 every step and K2 f32 3 times a validation batch and in
+    signature detection, nothing else; the loss falls, the final
+    train_sign_acc is 1.0, and its best.ckpt in a fresh model verifies
+    with detection 1.0. Returns the two runs' launch counts and best.ckpt
+    paths."""
+    import shutil
+
+    from deepipr_tpu_torch.cli import train_v1, train_v23
+    from deepipr_tpu_torch.models.registry import build_model
+    from deepipr_tpu_torch.serve import verify_ownership
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.utils.checkpoint import load_state
+
+    shutil.rmtree(ALEXNET_LOGDIR, ignore_errors=True)
+    size = {"synthetic_train": TRAIN_IMAGES}
+    t = time.perf_counter()
+    run0 = train_v1.main(ALEXNET_CLI + ["--epochs", "1"], **size)
+    log(f"AlexNet entry point: scheme 0, 1 epoch, in "
+        f"{time.perf_counter() - t:.1f} s: {history(run0.logdir)[-1]}")
+    pretrained = ["--pretrained-path",
+                  os.path.join(run0.logdir, "models", "last.ckpt"),
+                  "--epochs", str(ALEXNET_EPOCHS)]
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    counts, best = {}, {}
+    for scheme, main, flags in (
+            (1, train_v1, ["--train-passport", "--sign-loss", "0.1"]),
+            (2, train_v23, [])):
+        reset()
+        t = time.perf_counter()
+        run = main.main(ALEXNET_CLI + ALEXNET_PASSPORT + flags + pretrained,
+                        **size)
+        counts[scheme] = got = launches()
+        rows = history(run.logdir)
+        log(f"AlexNet entry point: V{scheme} --epoch-scan, "
+            f"{ALEXNET_EPOCHS} epochs, in {time.perf_counter() - t:.1f} s; "
+            f"launches {got}; history {rows}")
+        want = {"fused_augment": steps * ALEXNET_EPOCHS,
+                "passport_epilogue": ALEXNET_EPOCHS * ALEXNET_K2
+                * (len(run.valid_data) + 1)}
+        if got != {**dict.fromkeys(got, 0), **want}:
+            raise AssertionError(f"AlexNet V{scheme} launches {got}, "
+                                 f"expected {want}")
+        if not rows[-1]["train_loss"] < rows[0]["train_loss"]:
+            raise AssertionError(f"AlexNet V{scheme}: the loss did not fall")
+        signature = {k: v for k, v in rows[-1].items() if k.startswith("s_")}
+        if rows[-1]["train_sign_acc"] != 1.0 or \
+                set(signature.values()) != {1.0}:
+            raise AssertionError(f"AlexNet V{scheme}: the signature is not "
+                                 f"embedded: sign_acc "
+                                 f"{rows[-1]['train_sign_acc']}, detection "
+                                 f"{signature}")
+        best[scheme] = os.path.join(run.logdir, "models", "best.ckpt")
+        fresh = build_model("alexnet", 10, passport_kwargs=run.passport_kwargs,
+                            private=scheme == 2, seed=12345)
+        load_state(best[scheme], TrainState.create(fresh, 0.0),
+                   restore_opt=False)
+        verdict = verify_ownership(fresh, (1, 32, 32, 3),
+                                   private=scheme == 2)
+        if verdict["detection_rate"] != 1.0:
+            raise AssertionError(f"AlexNet V{scheme} best.ckpt does not "
+                                 f"verify: {verdict}")
+        log(f"  V{scheme} best.ckpt in a fresh model: detection "
+            f"{verdict['layers']} [{smi}]")
+    return counts, best
+
+
+def alexnet_attacks(best: dict, smi: str, launches, reset) -> dict:
+    """The attack CLIs at their defaults (--arch alexnet --scheme 1, batch
+    64) on the V1 best.ckpt, over the training run's synthetic set: pruning
+    (detection 1.0 at 0 %), flip ``--fidxs 4,5,6`` (detection constant),
+    attack 3 ``--flipperc 0.1`` for 1 epoch; the forge attack ``--steps
+    50`` on the V2 best.ckpt (it refuses V1). Then K2 and K2-bwd launches
+    per ambiguity step and one step card vs CPU (``ambiguity_checks``).
+    Returns the CLIs' launch counts."""
+    from deepipr_tpu_torch.cli import (
+        flip_attack,
+        passport_attack_3,
+        passport_forge_attack,
+        pruning_attack,
+    )
+
+    v1 = ["--dataset", "synthetic", "--loadpath", best[1]]
+    size = {"synthetic_train": TRAIN_IMAGES}
+    walls = {}
+
+    def run(name, main, argv):
+        t = time.perf_counter()
+        out = main(argv, **size)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    reset()
+    rows = run("pruning", pruning_attack.main, v1)
+    if len(rows) != 11 or rows[0]["detect_mean"] != 1.0:
+        raise AssertionError(f"AlexNet pruning: detection at 0 % "
+                             f"{rows[0]['detect_mean']}")
+    log(f"AlexNet pruning: detection at 0 / 50 % {rows[0]['detect_mean']} / "
+        f"{rows[5]['detect_mean']:.4f}, accuracy {rows[0]['acc']} / "
+        f"{rows[5]['acc']}")
+    rows = run("flip", flip_attack.main, v1 + ["--fidxs", "4,5,6"])
+    if len({r["detect_mean"] for r in rows}) != 1:
+        raise AssertionError("AlexNet flip: detection moved with the flipped "
+                             "affines")
+    log(f"AlexNet flip --fidxs 4,5,6: detection {rows[0]['detect_mean']}, "
+        f"accuracy {[r['acc'] for r in rows]}")
+    rows = run("attack 3", passport_attack_3.main,
+               v1 + ["--flipperc", "0.1", "--epochs", "1"])
+    if not all(np.isfinite(v) for r in rows for v in r.values()
+               if isinstance(v, float)):
+        raise AssertionError(f"AlexNet attack 3: {rows}")
+    log(f"AlexNet attack 3: {rows[-1]}")
+    forged, hists = run("forge", passport_forge_attack.main,
+                        ["--dataset", "synthetic", "--scheme", "2",
+                         "--loadpath", best[2], "--steps", "50"])
+    if not all(np.isfinite(r["forge_mse"]) for r in forged):
+        raise AssertionError(f"AlexNet forge: {forged}")
+    log(f"AlexNet forge: {forged}")
+    counts = launches()
+    log(f"AlexNet attack-path launches: {counts}; wall times "
+        f"{ {k: round(v, 1) for k, v in walls.items()} } s [{smi}]")
+    for name in ("passport_epilogue", "passport_epilogue_backward"):
+        if not counts[name]:
+            raise AssertionError(f"{name} was not launched on the AlexNet "
+                                 f"attack path: {counts}")
+    if counts["passport_epilogue_bf16"] or counts["fused_augment_bf16"]:
+        raise AssertionError(f"a bf16 form ran on the f32 attack path: "
+                             f"{counts}")
+    ambiguity_checks(["--arch", "alexnet", "--scheme", "1", "--dataset",
+                      "synthetic", "--loadpath", best[1]], launches, reset,
+                     private=False, per_step=ALEXNET_K2,
+                     batch_sizes=(ATTACK_BATCH,), forge_step=False)
+    return counts
+
+
 # ----------------------------------------------------------------- main
+
+def shape_key(shape) -> str:
+    return "x".join(map(str, shape))
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1398,38 +1710,48 @@ def main() -> int:
         passport_epilogue_backward,
     )
 
+    started = time.perf_counter()
     smi = environment()
-    build_kernels()
+    with phase("build"):
+        build_kernels()
 
     gen = torch.Generator().manual_seed(args.seed)
-    max_err = {"passport_epilogue": check_epilogue(gen),
-               "passport_epilogue_bf16": check_epilogue(gen, BF16),
-               "passport_epilogue_backward": check_backward(gen)}
-    cases = augment_cases(args.seed)
-    max_err["fused_augment"] = check_augment(cases)
-    max_err["fused_augment_bf16"] = check_augment(cases, BF16)
-    timer = DeviceTimer()
-    floor_ms = timer.floor_ms()
-    log(f"event timer floor (one-element zero_, L2 flushed): {floor_ms} ms "
-        f"[{smi}]")
-    timing = {}
-    for form, dtype in (("passport_epilogue", torch.float32),
-                        ("passport_epilogue_bf16", BF16)):
-        for shape in (MAIN_SHAPE, (1024, 512, 4, 4)):
-            t = time_epilogue(gen, timer, shape, smi, dtype)
-            log(f"{form} {shape}: {json.dumps(t)} [{smi}]")
-            if shape == MAIN_SHAPE:
-                timing[form] = t
-    for shape in ((ATTACK_BATCH, 512, 4, 4), MAIN_SHAPE):
-        t = time_backward(gen, timer, shape, smi)
-        log(f"passport_epilogue_backward {shape}: {json.dumps(t)} [{smi}]")
-        if shape[0] == ATTACK_BATCH:
-            timing["passport_epilogue_backward"] = t
-    for form, dtype in (("fused_augment", torch.float32),
-                        ("fused_augment_bf16", BF16)):
-        timing[form] = time_augment(timer, cases[0], smi, dtype)
-        log(f"{form} {cases[0][0]}: {json.dumps(timing[form])} [{smi}]")
-    del cases, timer
+    with phase("kernel checks"):
+        max_err = {"passport_epilogue": check_epilogue(gen),
+                   "passport_epilogue_bf16": check_epilogue(gen, BF16),
+                   "passport_epilogue_backward": check_backward(gen)}
+        cases = augment_cases(args.seed)
+        max_err["fused_augment"] = check_augment(cases)
+        max_err["fused_augment_bf16"] = check_augment(cases, BF16)
+    with phase("kernel times"):
+        timer = DeviceTimer()
+        floor_ms = timer.floor_ms()
+        log(f"event timer floor (one-element zero_, L2 flushed): {floor_ms} "
+            f"ms [{smi}]")
+        # timing[form]: the main shape's; by_shape[form]: every timed shape
+        timing, by_shape = {}, {}
+        for form, dtype in (("passport_epilogue", torch.float32),
+                            ("passport_epilogue_bf16", BF16)):
+            for shape in (MAIN_SHAPE, (1024, 512, 4, 4), *ALEXNET_TIMED):
+                t = time_epilogue(gen, timer, shape, smi, dtype)
+                log(f"{form} {shape}: {json.dumps(t)} [{smi}]")
+                by_shape.setdefault(form, {})[shape_key(shape)] = t
+                if shape == MAIN_SHAPE:
+                    timing[form] = t
+        for shape in ((ATTACK_BATCH, 512, 4, 4), MAIN_SHAPE,
+                      *ALEXNET_BWD_TIMED):
+            t = time_backward(gen, timer, shape, smi)
+            log(f"passport_epilogue_backward {shape}: {json.dumps(t)} "
+                f"[{smi}]")
+            by_shape.setdefault("passport_epilogue_backward",
+                                {})[shape_key(shape)] = t
+            if shape == (ATTACK_BATCH, 512, 4, 4):
+                timing["passport_epilogue_backward"] = t
+        for form, dtype in (("fused_augment", torch.float32),
+                            ("fused_augment_bf16", BF16)):
+            timing[form] = time_augment(timer, cases[0], smi, dtype)
+            log(f"{form} {cases[0][0]}: {json.dumps(timing[form])} [{smi}]")
+        del cases, timer
 
     wrappers = {"passport_epilogue": passport_epilogue,
                 "fused_augment": fused_augment}
@@ -1450,51 +1772,78 @@ def main() -> int:
             fn.form_launches = dict.fromkeys(fn.form_launches, 0)
         passport_epilogue_backward.launches = 0
 
-    batches = request_batches(3, args.seed)
-    serve_counts = {}
-    for form, dtype in (("passport_epilogue", None),
-                        ("passport_epilogue_bf16", BF16)):
-        cpu_model = random_model(args.seed, dtype)
-        gpu_model = copy.deepcopy(cpu_model).to("cuda")
-        forged = forged_passports(cpu_model, args.seed + 2)
-        reset()
-        serve_path(gpu_model, cpu_model, batches, forged, launches, form)
-        counts = launches()
-        log(f"serving-path launches ({form}): {counts}")
-        if not counts[form] or sum(counts.values()) != counts[form]:
-            raise AssertionError(f"{form} did not carry the serving path: "
-                                 f"{counts}")
-        serve_counts[form] = counts[form]
-        label = "bf16" if dtype else "f32 (TF32 off)"
-        throughput(gpu_model, smi, label)
-        where_time_goes(gpu_model, smi)
-        log(f"peak device memory: "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        del gpu_model, cpu_model
+    # paths[name][form]: launches of each form over one main path's run,
+    # the counts set to 0 just before it and read just after
+    paths = {}
+    with phase("resnet serve"):
+        batches = request_batches(3, args.seed)
+        for form, dtype in (("passport_epilogue", None),
+                            ("passport_epilogue_bf16", BF16)):
+            cpu_model = random_model(args.seed, dtype)
+            gpu_model = copy.deepcopy(cpu_model).to("cuda")
+            forged = forged_passports(cpu_model, args.seed + 2)
+            reset()
+            serve_path(gpu_model, cpu_model, batches, forged, launches, form)
+            counts = launches()
+            log(f"serving-path launches ({form}): {counts}")
+            if not counts[form] or sum(counts.values()) != counts[form]:
+                raise AssertionError(f"{form} did not carry the serving "
+                                     f"path: {counts}")
+            paths[f"resnet_serve_{'bf16' if dtype else 'f32'}"] = counts
+            label = "bf16" if dtype else "f32 (TF32 off)"
+            throughput(gpu_model, smi, label)
+            where_time_goes(gpu_model, smi)
+            log(f"peak device memory: "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del gpu_model, cpu_model
 
-    train_counts, rates = {}, {}
-    for form, dtype in (("fused_augment", torch.float32),
-                        ("fused_augment_bf16", BF16)):
-        trained, state, xs, ys, counts, held_out, rates[form] = train_path(
-            args.seed, smi, launches, reset, dtype)
-        train_counts[form] = counts[form]
-        train_parity(args.seed, dtype)
-        trained_serving(trained, held_out)
-        train_profile(trained, state, xs, ys, args.seed, smi, dtype=dtype)
-        del trained, state, xs, ys
-    log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH}: bf16 "
-        f"{rates['fused_augment_bf16']:.1f} img/s beside f32 "
-        f"{rates['fused_augment']:.1f} img/s "
-        f"({rates['fused_augment_bf16'] / rates['fused_augment']:.2f}x) "
-        f"[{smi}]")
+    rates = {}
+    with phase("resnet train"):
+        for form, dtype in (("fused_augment", torch.float32),
+                            ("fused_augment_bf16", BF16)):
+            trained, state, xs, ys, counts, held_out, rates[form] = \
+                train_path(args.seed, smi, launches, reset, dtype)
+            paths[f"resnet_train_{'bf16' if dtype == BF16 else 'f32'}"] = \
+                counts
+            train_parity(args.seed, dtype)
+            trained_serving(trained, held_out)
+            train_profile(trained, state, xs, ys, args.seed, smi,
+                          dtype=dtype)
+            del trained, state, xs, ys
+        log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH}: "
+            f"bf16 {rates['fused_augment_bf16']:.1f} img/s beside f32 "
+            f"{rates['fused_augment']:.1f} img/s "
+            f"({rates['fused_augment_bf16'] / rates['fused_augment']:.2f}x) "
+            f"[{smi}]")
 
-    _, best = cli_path(smi, launches, reset)
-    attack_counts = attack_path(best, smi, launches, reset)
-    ambiguity_checks(best, launches, reset)
+    with phase("resnet cli"):
+        paths["resnet_cli"], best = cli_path(smi, launches, reset)
+    with phase("resnet attacks"):
+        paths["resnet_attacks"] = attack_path(best, smi, launches, reset)
+        ambiguity_checks(attack_argv(best), launches, reset)
 
-    path_launches = {**serve_counts, **train_counts,
-                     "passport_epilogue_backward":
-                         attack_counts["passport_epilogue_backward"]}
+    with phase("alexnet_serve"):
+        paths["alexnet_serve"] = alexnet_serve(args.seed, smi, launches,
+                                               reset)
+    with phase("alexnet_cli"):
+        counts, alexnet_best = alexnet_cli(smi, launches, reset)
+        paths["alexnet_cli_v1"], paths["alexnet_cli_v2"] = counts[1], \
+            counts[2]
+    with phase("alexnet_attacks"):
+        paths["alexnet_attacks"] = alexnet_attacks(alexnet_best, smi,
+                                                   launches, reset)
+    # every kernel form on the AlexNet paths: K1 in training, K2 in both
+    # forms in serving (8x8 and 13x13), K2-bwd in the attacks
+    alexnet = {form: sum(c.get(form, 0) for name, c in paths.items()
+                         if name.startswith("alexnet"))
+               for form in ("fused_augment", "passport_epilogue",
+                            "passport_epilogue_bf16",
+                            "passport_epilogue_backward")}
+    if not all(alexnet.values()):
+        raise AssertionError(f"a kernel form was not launched on the AlexNet "
+                             f"paths: {alexnet}")
+    log(f"launches by path: {json.dumps(paths)}")
+
     # K2-bwd is the gradient of K2. It replaces no Pallas kernel: the JAX
     # package differentiates the XLA epilogue that its default mode "off"
     # (pallas_fused.py:121, 142-149) selects
@@ -1503,19 +1852,34 @@ def main() -> int:
         "passport_epilogue_backward": "deepipr_tpu/models/layers.py:177",
         "fused_augment": "deepipr_tpu/ops/pallas_augment.py:64",
     }
-    kernels = [{
-        "name": form,
-        "route": "cuda",
-        "source": "deepipr_tpu_torch/csrc/"
-                  f"{form.removesuffix('_bf16').removesuffix('_backward')}.cu",
-        "replaces": sources[form.removesuffix("_bf16")],
-        "launches": path_launches[form],
-        "max_abs_err": max_err[form],
-        "floor_ms": floor_ms,
-        **timing[form],
-    } for form in ("passport_epilogue", "passport_epilogue_bf16",
-                   "passport_epilogue_backward", "fused_augment",
-                   "fused_augment_bf16")]
+    timed_shape = {"passport_epilogue": MAIN_SHAPE,
+                   "passport_epilogue_backward": (ATTACK_BATCH, 512, 4, 4),
+                   "fused_augment": (TRAIN_BATCH, 3, 32, 32)}
+    kernels = []
+    for form in ("passport_epilogue", "passport_epilogue_bf16",
+                 "passport_epilogue_backward", "fused_augment",
+                 "fused_augment_bf16"):
+        base = form.removesuffix("_bf16")
+        by_path = {name: c[form] for name, c in paths.items() if c.get(form)}
+        if not by_path:
+            raise AssertionError(f"{form} was launched on no main path")
+        entry = {
+            "name": form,
+            "route": "cuda",
+            "source": "deepipr_tpu_torch/csrc/"
+                      f"{base.removesuffix('_backward')}.cu",
+            "replaces": sources[base],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max_err[form],
+            "floor_ms": floor_ms,
+            "shape": shape_key(timed_shape[base]),
+            **timing[form],
+        }
+        if form in by_shape:
+            entry["by_shape"] = by_shape[form]
+        kernels.append(entry)
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

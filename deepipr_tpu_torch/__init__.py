@@ -14,6 +14,6 @@ Conventions:
 - Training (``train/``) puts the model in train mode and leaves it there;
   every eval entry point enters eval mode for the call (utils/mode.py).
 - Derived passport affines leave the model as explicit outputs keyed by
-  module path (``models.resnet.ResNetOutput.aux``), the counterpart of the
+  module path (``models.layers.ModelOutput.aux``), the counterpart of the
   JAX ``passport_aux`` collection.
 """

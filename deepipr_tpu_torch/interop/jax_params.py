@@ -13,10 +13,21 @@ reference's aliases):
   params/<mod>/bn*/scale|bias         -> <mod>.bn*.weight|bias
   params/<mod>/scale|bias             -> <mod>.scale|bias (learned affine)
   params/linear/kernel (in,out)       -> linear.weight (out,in)
-  params/linear/bias                  -> linear.bias
+  params/classifier_4|6/kernel        -> classifier_4|6.weight, the same
+  params/<dense>/bias                 -> <dense>.bias
+  params/classifier/kernel (H*W*C,out)  -> classifier.weight (out,C*H*W)
+  params/classifier_1/kernel (9216,out) -> classifier_1.weight (out,9216)
   batch_stats/<mod>/bn*/mean|var      -> <mod>.bn*.running_mean|running_var
   passport/<mod>/key|skey (1,H,W,C)   -> <mod>.key|skey (1,C,H,W)
   signature/<mod>/b                   -> <mod>.b
+
+The two Linears of AlexNet that read a flattened conv map (``classifier``
+on CIFAR's 256x4x4, ``classifier_1`` on the ImageNet head's 256x6x6) are
+not a plain transpose: JAX flattens its NHWC map in (h, w, c) order, the
+port, like the reference, its NCHW map in (c, h, w) order (``x.view(n,
+-1)``), so their input rows are reordered on load (the inverse of the JAX
+package's ``_FLATTENED_LINEAR_SHAPES``, interop/torch_import.py:32-44).
+ResNet's ``linear`` follows the global average pool and needs nothing.
 
 Every entry must match on both sides; anything unmatched raises.
 """
@@ -29,6 +40,21 @@ import numpy as np
 import torch
 
 COLLECTIONS = ("params", "batch_stats", "passport", "signature")
+
+# Linear layers that read a flattened conv map, keyed by (module path,
+# in_features): the map's (C, H, W)
+FLATTENED_LINEAR_SHAPES = {
+    ("classifier", 4096): (256, 4, 4),  # CIFAR AlexNet
+    ("classifier_1", 9216): (256, 6, 6),  # AlexNet's ImageNet head
+}
+
+
+def _hwc_rows_to_chw_columns(kernel: np.ndarray, chw) -> np.ndarray:
+    """A (H*W*C, out) Dense kernel whose rows are in (h, w, c) order as a
+    (out, C*H*W) Linear weight whose columns are in (c, h, w) order."""
+    c, h, w = chw
+    return kernel.reshape(h, w, c, -1).transpose(3, 2, 0, 1).reshape(
+        kernel.shape[1], -1)
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -48,6 +74,12 @@ def _port_entry(collection: str, path: Tuple[str, ...], v: np.ndarray):
         if leaf == "kernel" and v.ndim == 4:
             return f"{mod}weight", v.transpose(3, 2, 0, 1)
         if leaf == "kernel" and v.ndim == 2:
+            chw = FLATTENED_LINEAR_SHAPES.get((".".join(mods), v.shape[0]))
+            if chw is not None:
+                return f"{mod}weight", _hwc_rows_to_chw_columns(v, chw)
+            if mods in (["classifier"], ["classifier_1"]):
+                raise ValueError(f"params/{'/'.join(path)}: no (C, H, W) "
+                                 f"for a flattened map of {v.shape[0]}")
             return f"{mod}weight", v.T
         if mods and mods[-1] in ("bn", "bn_private") and leaf == "scale":
             return f"{mod}weight", v

@@ -24,7 +24,7 @@ models/layers/conv2d.py, passportconv2d.py, passportconv2d_private.py).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -185,6 +185,56 @@ class PassportPrivateBlock(_PassportBase):
                         self.dtype), None
         norm = self.bn if self.bn_private is None else self.bn_private
         return self._derived_affine_forward(x, norm)
+
+
+class ModelOutput(NamedTuple):
+    """logits (N, classes); aux {module path: derived affine}, the
+    counterpart of the JAX 'passport_aux' collection; tap, the input of the
+    ``tap_at`` unit (None unless asked for)."""
+
+    logits: torch.Tensor
+    aux: Dict[str, Dict[str, Any]]
+    tap: Optional[torch.Tensor]
+
+
+def conv_out_hw(hw: Tuple[int, int], k: int, s: int,
+                p: int) -> Tuple[int, int]:
+    """Spatial size after a convolution or pooling window of size k,
+    stride s and padding p (floor mode)."""
+    return tuple((d + 2 * p - k) // s + 1 for d in hw)
+
+
+def make_block(layer_kwargs: Optional[Dict[str, Any]], norm_type: str,
+               in_channels: int, features: int, k: int, s: int, p: int,
+               private: bool, relu: bool, input_hw: Tuple[int, int],
+               dtype: Optional[torch.dtype]):
+    """ConvBlock, or the passport block of the scheme where the layer's
+    passport kwargs set ``flag``."""
+    if layer_kwargs is not None and layer_kwargs["flag"]:
+        common = dict(
+            in_channels=in_channels,
+            features=features,
+            kernel_size=k,
+            strides=s,
+            padding=p,
+            norm_type=layer_kwargs["norm_type"],
+            key_type=layer_kwargs["key_type"],
+            alpha=layer_kwargs["sign_loss"],
+            b_spec=layer_kwargs.get("b"),
+            relu=relu,
+            input_hw=input_hw,
+            dtype=dtype,
+        )
+        if private:
+            return PassportPrivateBlock(
+                separate_stats=layer_kwargs.get("separate_stats", False),
+                **common)
+        return PassportBlock(
+            learnable_affine=layer_kwargs.get("learnable_affine", False),
+            **common)
+    nt = layer_kwargs["norm_type"] if layer_kwargs is not None else norm_type
+    return ConvBlock(in_channels, features, k, s, p, norm_type=nt, relu=relu,
+                     dtype=dtype)
 
 
 @torch.no_grad()

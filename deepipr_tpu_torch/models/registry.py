@@ -2,7 +2,8 @@
 
 Counterpart of ``deepipr_tpu/models/registry.py`` (reference construct_model
 dispatch, experiments/classification.py:66-126,
-classification_private.py:66-106), for the ResNet archs ported so far.
+classification_private.py:66-106), for the archs ported so far: AlexNet,
+ResNet9 and ResNet18.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from deepipr_tpu_torch.models.alexnet import AlexNet
 from deepipr_tpu_torch.models.resnet import ResNet9, ResNet18
 from deepipr_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -26,7 +28,7 @@ NUM_CLASSES = {
 }
 
 # archs of the JAX package that the port has not reached yet
-_LATER = ("alexnet", "resnet34", "resnet50")
+_LATER = ("resnet34", "resnet50")
 
 
 def build_model(
@@ -51,8 +53,10 @@ def build_model(
     if arch in _LATER:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 4: "
-            "AlexNet, Bottleneck)")
-    if arch in ("resnet", "resnet18"):
+            "Bottleneck, ResNet34/50)")
+    if arch == "alexnet":
+        make = AlexNet
+    elif arch in ("resnet", "resnet18"):
         make = ResNet18
     elif arch == "resnet9":
         make = ResNet9

@@ -21,64 +21,19 @@ ResNet34/50 are a later slice.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from deepipr_tpu_torch.models.layers import (
-    ConvBlock,
-    PassportBlock,
-    PassportPrivateBlock,
+    ModelOutput,
+    conv_out_hw,
     init_weights,
+    make_block,
 )
 from deepipr_tpu_torch.ops.pooling import global_avg_pool, max_pool2d
-
-
-class ResNetOutput(NamedTuple):
-    """logits (N, classes); aux {module path: derived affine}, the
-    counterpart of the JAX 'passport_aux' collection; tap, the input of the
-    ``tap_at`` unit (None unless asked for)."""
-
-    logits: torch.Tensor
-    aux: Dict[str, Dict[str, Any]]
-    tap: Optional[torch.Tensor]
-
-
-def _out_hw(hw: Tuple[int, int], k: int, s: int, p: int) -> Tuple[int, int]:
-    return tuple((d + 2 * p - k) // s + 1 for d in hw)
-
-
-def _make_block(layer_kwargs: Optional[Dict[str, Any]], norm_type: str,
-                in_channels: int, features: int, k: int, s: int, p: int,
-                private: bool, relu: bool, input_hw: Tuple[int, int],
-                dtype: Optional[torch.dtype]):
-    if layer_kwargs is not None and layer_kwargs["flag"]:
-        common = dict(
-            in_channels=in_channels,
-            features=features,
-            kernel_size=k,
-            strides=s,
-            padding=p,
-            norm_type=layer_kwargs["norm_type"],
-            key_type=layer_kwargs["key_type"],
-            alpha=layer_kwargs["sign_loss"],
-            b_spec=layer_kwargs.get("b"),
-            relu=relu,
-            input_hw=input_hw,
-            dtype=dtype,
-        )
-        if private:
-            return PassportPrivateBlock(
-                separate_stats=layer_kwargs.get("separate_stats", False),
-                **common)
-        return PassportBlock(
-            learnable_affine=layer_kwargs.get("learnable_affine", False),
-            **common)
-    nt = layer_kwargs["norm_type"] if layer_kwargs is not None else norm_type
-    return ConvBlock(in_channels, features, k, s, p, norm_type=nt, relu=relu,
-                     dtype=dtype)
 
 
 class BasicBlock(nn.Module):
@@ -97,19 +52,19 @@ class BasicBlock(nn.Module):
         def sub(name):
             return None if passport_kwargs is None else passport_kwargs[name]
 
-        mid_hw = _out_hw(input_hw, 3, stride, 1)
+        mid_hw = conv_out_hw(input_hw, 3, stride, 1)
         self.output_hw = mid_hw
-        self.convbnrelu_1 = _make_block(sub("convbnrelu_1"), norm_type,
-                                        in_planes, planes, 3, stride, 1,
-                                        private, True, input_hw, dtype)
-        self.convbn_2 = _make_block(sub("convbn_2"), norm_type, planes,
-                                    planes, 3, 1, 1, private, True, mid_hw,
-                                    dtype)
+        self.convbnrelu_1 = make_block(sub("convbnrelu_1"), norm_type,
+                                       in_planes, planes, 3, stride, 1,
+                                       private, True, input_hw, dtype)
+        self.convbn_2 = make_block(sub("convbn_2"), norm_type, planes,
+                                   planes, 3, 1, 1, private, True, mid_hw,
+                                   dtype)
         self.shortcut = None
         if stride != 1 or in_planes != self.expansion * planes:
-            self.shortcut = _make_block(sub("shortcut"), norm_type, in_planes,
-                                        self.expansion * planes, 1, stride, 0,
-                                        private, True, input_hw, dtype)
+            self.shortcut = make_block(sub("shortcut"), norm_type, in_planes,
+                                       self.expansion * planes, 1, stride, 0,
+                                       private, True, input_hw, dtype)
 
     def forward(self, x, ind: int = 0, force_passport: bool = False):
         aux = {}
@@ -149,11 +104,11 @@ class ResNet(nn.Module):
         hw = (input_size, input_size)
         stem_kwargs = None if pk is None else pk["convbnrelu_1"]
         k, s, p = (7, 2, 3) if self.is_imagenet else (3, 1, 1)
-        self.convbnrelu_1 = _make_block(stem_kwargs, norm_type, 3, 64, k, s,
-                                        p, private, True, hw, dtype)
-        hw = _out_hw(hw, k, s, p)
+        self.convbnrelu_1 = make_block(stem_kwargs, norm_type, 3, 64, k, s,
+                                       p, private, True, hw, dtype)
+        hw = conv_out_hw(hw, k, s, p)
         if self.is_imagenet:
-            hw = _out_hw(hw, 3, 2, 1)
+            hw = conv_out_hw(hw, 3, 2, 1)
         self.unit_names: List[str] = ["convbnrelu_1"]
 
         in_planes = 64
@@ -181,7 +136,7 @@ class ResNet(nn.Module):
 
     def forward(self, x, ind: int = 0, force_passport: bool = False,
                 start_at: Optional[str] = None,
-                tap_at: Optional[str] = None) -> ResNetOutput:
+                tap_at: Optional[str] = None) -> ModelOutput:
         """x: NCHW images, or the ``start_at`` unit's input (the split dual
         forward, train/steps.py). ``tap_at``: return the named unit's input
         as ``tap``, with its autograd history, so a loss on the branch that
@@ -205,7 +160,7 @@ class ResNet(nn.Module):
                     x = max_pool2d(x, 3, 2, padding=1)
             else:
                 aux.update({f"{name}/{k}": v for k, v in unit_aux.items()})
-        return ResNetOutput(self.linear(global_avg_pool(x)), aux, tap)
+        return ModelOutput(self.linear(global_avg_pool(x)), aux, tap)
 
 
 def _factory(block_cls, num_blocks):

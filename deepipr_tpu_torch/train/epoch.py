@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from deepipr_tpu_torch.train.state import TrainState
-from deepipr_tpu_torch.train.steps import DrawFn, make_train_step
+from deepipr_tpu_torch.train.steps import DrawFn, DropoutFn, make_train_step
 from deepipr_tpu_torch.utils.device import DeviceLike, resolve_device, \
     seeded_generator
 
@@ -54,6 +54,7 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
                         split_branches: bool = True, remat: str = "none",
                         wm_batch: int = 2, seed: int = 0,
                         draws: Optional[DrawFn] = None,
+                        dropout: Optional[DropoutFn] = None,
                         out_dtype: torch.dtype = torch.float32,
                         device: DeviceLike = "cuda"):
     """Build epoch_fn(state, images_u8, labels, epoch_key[, wm_images_u8,
@@ -64,14 +65,16 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
     ``epoch_key`` on the device, the trigger set's from (epoch_key, 1);
     ``perm``/``wm_perm`` replace them (tests inject JAX's). Each step takes
     the next ``wm_batch`` triggers round-robin. ``draws``: the per-step
-    augmentation draws, and ``out_dtype`` the dtype K1 writes, as in
-    ``make_train_step``. ``mean_metrics``: each step metric averaged over
-    the epoch, as device tensors.
+    augmentation draws, ``dropout`` the per-step dropout masks, and
+    ``out_dtype`` the dtype K1 writes, as in ``make_train_step``.
+    ``mean_metrics``: each step metric averaged over the epoch, as device
+    tensors.
     """
     dev = resolve_device(device)
     step_fn = make_train_step(model, private, split_branches=split_branches,
                               pad=pad, remat=remat, seed=seed, draws=draws,
-                              out_dtype=out_dtype, device=dev)
+                              dropout=dropout, out_dtype=out_dtype,
+                              device=dev)
 
     def epoch_fn(state: TrainState, images_u8: torch.Tensor,
                  labels: torch.Tensor, epoch_key: int,

@@ -20,7 +20,8 @@ back once at the end.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
+    Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +34,7 @@ from deepipr_tpu_torch.data.device_augment import (
     normalize_device,
     scaled_stats,
 )
+from deepipr_tpu_torch.models.alexnet import DROPOUT_KEEP
 from deepipr_tpu_torch.models.branching import branch_point
 from deepipr_tpu_torch.ops.fused_augment import fused_augment
 from deepipr_tpu_torch.ops.norms import BN_MOMENTUM, BatchNorm
@@ -49,6 +51,9 @@ from deepipr_tpu_torch.utils.device import (
 from deepipr_tpu_torch.utils.mode import eval_mode
 
 DrawFn = Callable[[int, int], Draws]
+# dropout(step, shapes) -> one boolean keep mask of each shape
+DropoutFn = Callable[[int, Sequence[Tuple[int, ...]]], List[torch.Tensor]]
+DROPOUT_STREAM = 1  # folded in after the step: apart from seeded_draws'
 
 
 def cross_entropy_mean(logits, labels, weight=None):
@@ -89,6 +94,20 @@ def seeded_draws(seed: int, pad: int, device: torch.device) -> DrawFn:
     return draws
 
 
+def seeded_dropout(seed: int, device: torch.device) -> DropoutFn:
+    """dropout(step, shapes) -> keep masks (each unit kept with
+    probability DROPOUT_KEEP) on ``device``, a function of (seed, step)
+    alone: the counterpart of ``fold_in(drop_root, step)``, a stream apart
+    from ``seeded_draws``'."""
+
+    def dropout(step: int, shapes) -> List[torch.Tensor]:
+        gen = seeded_generator(device, seed, step, DROPOUT_STREAM)
+        return [torch.rand(shape, generator=gen, device=device) < DROPOUT_KEEP
+                for shape in shapes]
+
+    return dropout
+
+
 def _bn_buffers(modules) -> List[torch.Tensor]:
     return [buf for m in modules for bn in m.modules()
             if isinstance(bn, BatchNorm)
@@ -98,6 +117,7 @@ def _bn_buffers(modules) -> List[torch.Tensor]:
 def make_train_step(model, private: bool, split_branches: bool = True,
                     pad: Optional[int] = None, remat: str = "none",
                     seed: int = 0, draws: Optional[DrawFn] = None,
+                    dropout: Optional[DropoutFn] = None,
                     out_dtype: torch.dtype = torch.float32,
                     device: DeviceLike = "cuda"):
     """Build the SGD train step for this model and scheme.
@@ -120,6 +140,12 @@ def make_train_step(model, private: bool, split_branches: bool = True,
     ``batch["wm_label"]``. ``batch["weight"]``: optional per-sample loss
     weights. The loss, the sign loss and the metrics are f32 whatever the
     model's dtype.
+
+    A model with dropout (AlexNet's ImageNet head, ``dropout_shapes``)
+    takes its keep masks from ``dropout(state.step, shapes)``, by default
+    ``seeded_dropout(seed, device)``; tests inject JAX's. Every forward of
+    a step uses the same masks, as the JAX step hands each the same
+    dropout key.
 
     split_branches (private models): the public and private forwards agree
     up to the first passport block, so the shared prefix runs once and the
@@ -146,6 +172,8 @@ def make_train_step(model, private: bool, split_branches: bool = True,
     if pad is not None:
         mean255, std255 = scaled_stats(device=dev)
         draws = draws or seeded_draws(seed, pad, dev)
+    dropout = dropout or seeded_dropout(seed, dev)
+    dropout_shapes = getattr(model, "dropout_shapes", lambda n: [])
 
     def inputs(state: TrainState, batch):
         y = torch.as_tensor(batch["label"], device=dev).long()
@@ -175,16 +203,19 @@ def make_train_step(model, private: bool, split_branches: bool = True,
         if w is not None:
             w = torch.as_tensor(w, dtype=torch.float32, device=dev)
 
+        shapes = dropout_shapes(x.shape[0])
+        fwd = {"dropout_masks": dropout(state.step, shapes)} if shapes else {}
+
         if fork is not None:
             fork_name, _ = fork
             torch._foreach_copy_(snapshot, prefix_bufs)
-            out0 = model(x, ind=0, tap_at=fork_name)
-            out1 = model(out0.tap, ind=1, start_at=fork_name)
+            out0 = model(x, ind=0, tap_at=fork_name, **fwd)
+            out1 = model(out0.tap, ind=1, start_at=fork_name, **fwd)
         elif private:
-            out0 = model(x, ind=0)
-            out1 = model(x, ind=1)
+            out0 = model(x, ind=0, **fwd)
+            out1 = model(x, ind=1, **fwd)
         else:
-            out = model(x)
+            out = model(x, **fwd)
             ce = cross_entropy_mean(out.logits, y, w)
             sl, sacc = total_sign_loss(collect_aux(out.aux), dev)
             metrics = {"acc": top1_accuracy(out.logits, y, w)}

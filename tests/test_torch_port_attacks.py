@@ -232,12 +232,14 @@ def v3_pair():
     return _pair(scheme=3)
 
 
-@pytest.mark.parametrize("attack", ["pruning", "flip"])
+@pytest.mark.parametrize("attack", ["pruning", "flip", "reverse"])
 def test_v3_trigger_set_rows_match_jax(v3_pair, batches, attack):
     """V3: with a trigger-set loader (two batches of four images and their
     target labels) each row also holds the black-box watermark accuracy,
-    ``wm_acc`` (public branch) and, in pruning, ``wm_acc_private``; those
-    within one image of eight of JAX's, the rest as the V2 tests hold it."""
+    ``wm_acc`` (public branch; attack 2's attacked normal model, after
+    each epoch of affine-only retraining) and, in pruning,
+    ``wm_acc_private``; those within one image of eight of JAX's, the rest
+    as the V2 tests hold it."""
     jmodel, state, pmodel = v3_pair
     rng = np.random.default_rng(13)
     wm = [{"image": rng.normal(size=(BATCH, SIZE, SIZE, 3)).astype(
@@ -251,13 +253,33 @@ def test_v3_trigger_set_rows_match_jax(v3_pair, batches, attack):
         rows = pruning.pruning_attack(pmodel, batches, SHAPE, True,
                                       percents=percents, wm_data=wm)
         exact = ["perc"]
-    else:
+    elif attack == "flip":
         jrows = jax_flip.flip_attack(jmodel, state, batches, SHAPE, True,
                                      JAX_PLPATHS, percents=percents, seed=1,
                                      wm_data=wm)
         rows = flip.flip_attack(pmodel, batches, SHAPE, True, PLPATHS,
                                 percents=percents, seed=1, wm_data=wm)
         exact = ["perc", "similarity"]
+    else:
+        # two epochs of the affine-only retraining, on the trigger batches'
+        # images as training data, half the scale signs flipped
+        jrows = jax_reverse.reverse_attack(
+            jmodel, state, jax_resnet.ResNet9(num_classes=10, norm_type="gn"),
+            batches, batches, SHAPE, True, JAX_PLPATHS, flipperc=0.5,
+            epochs=2, seed=0, wm_data=wm)
+        rows = reverse.reverse_attack(
+            pmodel, build_model("resnet9", 10, norm_type="gn",
+                                input_size=SIZE, device="cpu"),
+            batches, batches, SHAPE, True, PLPATHS, flipperc=0.5, epochs=2,
+            seed=0, wm_data=wm)
+        wm_keys = ["wm_acc"]
+        assert sorted(k for k in jrows[1] if k.startswith("wm_")) == wm_keys
+        _assert_rows(rows[:1], jrows[:1], exact=["epoch", "similarity"],
+                     acc=["valid_acc", *wm_keys], close=["valid_loss"])
+        _assert_rows(rows[1:], jrows[1:], exact=["epoch"],
+                     acc=["valid_acc", *wm_keys],
+                     close=["valid_loss", "train_loss", "train_acc"])
+        return
     wm_keys = sorted(k for k in jrows[0] if k.startswith("wm_"))
     assert wm_keys == (["wm_acc", "wm_acc_private"] if attack == "pruning"
                        else ["wm_acc"])

@@ -52,10 +52,13 @@ def cuda():
 
 
 # NCHW: the serving path's layer4 blocks at batch 256 and 1 (signature
-# detection), and tests/test_pallas.py's shapes
+# detection), tests/test_pallas.py's shapes, and AlexNet's features_4-6 at
+# 8x8 (CIFAR) and 13x13 (ImageNet, 224 px)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(256, 512, 4, 4), (1, 512, 4, 4),
-                                   (4, 128, 8, 8), (2, 64, 56, 56)])
+                                   (4, 128, 8, 8), (2, 64, 56, 56),
+                                   (256, 384, 8, 8), (1, 256, 8, 8),
+                                   (64, 384, 13, 13)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_epilogue_kernel_matches_plain_version(cuda, shape, relu):
     n, c, h, w = shape
@@ -100,13 +103,16 @@ def _misaligned(t):
 
 # ragged cases of the redesigned kernel: H*W = 49 (the scalar path), C not a
 # multiple of the channel tile, batch 1; a key_out off 16-byte alignment, and
-# y off it (the scalar path at H*W = 16)
+# y off it (the scalar path at H*W = 16); AlexNet's ImageNet features_5/6,
+# H*W = 169 (the scalar path) in tiles of 3 channels, the last of 256 ragged
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["hw49", "ragged_tile", "batch1",
-                                  "misaligned_key", "misaligned_y"])
+                                  "misaligned_key", "misaligned_y",
+                                  "hw169"])
 def test_epilogue_kernel_ragged_and_misaligned(cuda, case):
     shape = {"hw49": (8, 512, 7, 7), "ragged_tile": (3, 40, 5, 3),
-             "batch1": (1, 512, 4, 4)}.get(case, (16, 512, 4, 4))
+             "batch1": (1, 512, 4, 4), "hw169": (64, 256, 13, 13)}.get(
+        case, (16, 512, 4, 4))
     args = _epilogue_args(shape, cuda, seed=1)
     if case == "misaligned_key":
         args[1] = _misaligned(args[1])
@@ -115,7 +121,7 @@ def test_epilogue_kernel_ragged_and_misaligned(cuda, case):
     n, c, h, w = shape
     geo = epilogue_geometry(n, c, h * w, args[0].data_ptr(), 0)
     assert geo.vector == (case not in ("hw49", "ragged_tile",
-                                       "misaligned_y"))
+                                       "misaligned_y", "hw169"))
     for relu in (True, False):
         got = passport_epilogue(*args, relu=relu)
         torch.cuda.synchronize()
@@ -126,7 +132,8 @@ def test_epilogue_kernel_ragged_and_misaligned(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 512, 4, 4), (8, 512, 7, 7)])
+@pytest.mark.parametrize("shape", [(256, 512, 4, 4), (8, 512, 7, 7),
+                                   (64, 256, 13, 13)])
 def test_epilogue_kernel_is_deterministic(cuda, shape):
     """Every block derives a channel's coefficients in one fixed order and
     no atomics are used: two calls agree bit for bit."""
@@ -157,22 +164,25 @@ def bf16_ulps(a, b) -> int:
 
 
 # the bf16 form: the main shapes, H*W = 49 (the scalar path), a ragged tile,
-# H*W = 4 (not a multiple of 8: the scalar path), and y or out off 16-byte
-# alignment
+# H*W = 4 (not a multiple of 8: the scalar path), y or out off 16-byte
+# alignment, and AlexNet's features_4 at 8x8 and 13x13 (the scalar path)
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["main", "batch1", "hw49", "ragged_tile",
-                                  "hw4", "misaligned_y", "misaligned_out"])
+                                  "hw4", "misaligned_y", "misaligned_out",
+                                  "alexnet_8x8", "alexnet_13x13"])
 def test_epilogue_bf16_kernel_matches_plain_version(cuda, case):
     shape = {"main": (256, 512, 4, 4), "batch1": (1, 512, 4, 4),
              "hw49": (8, 512, 7, 7), "ragged_tile": (3, 40, 5, 3),
-             "hw4": (4, 128, 2, 2)}.get(case, (16, 512, 4, 4))
+             "hw4": (4, 128, 2, 2), "alexnet_8x8": (256, 384, 8, 8),
+             "alexnet_13x13": (64, 384, 13, 13)}.get(case, (16, 512, 4, 4))
     args = _epilogue_args(shape, cuda, seed=3)
     args[0] = args[0].to(torch.bfloat16)
     if case == "misaligned_y":
         args[0] = _misaligned(args[0])
     n, c, h, w = shape
     geo = epilogue_geometry(n, c, h * w, args[0].data_ptr(), 0, itemsize=2)
-    assert geo.vector == (case in ("main", "batch1", "misaligned_out"))
+    assert geo.vector == (case in ("main", "batch1", "misaligned_out",
+                                   "alexnet_8x8"))
     if geo.vector:  # every thread of the tile carries y
         assert geo.threads == geo.row_split * geo.tile_c * h * w // 8
     for relu in (True, False):
@@ -239,14 +249,18 @@ BWD_SUM_TOL = dict(rtol=1e-4, atol=1e-4)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["b64", "b256", "b1024", "b1", "hw49",
-                                  "ragged_tile", "misaligned_y"])
+                                  "ragged_tile", "misaligned_y",
+                                  "alexnet_b64_384", "alexnet_b64_256",
+                                  "alexnet_b1"])
 @pytest.mark.parametrize("relu", [True, False])
 def test_epilogue_backward_kernel_matches_plain_version(cuda, case, relu):
-    # b1: the forge attack's batch of one image
+    # b1: the forge attack's batch of one image; alexnet_*: AlexNet's
+    # features_4 and _5/_6 at 8x8 at the attack CLIs' batch and the forge's
     shape = {"b64": (64, 512, 4, 4), "b1024": (1024, 512, 4, 4),
              "b1": (1, 512, 4, 4), "hw49": (8, 512, 7, 7),
-             "ragged_tile": (3, 40, 5, 3)}.get(
-        case, (256, 512, 4, 4))
+             "ragged_tile": (3, 40, 5, 3), "alexnet_b64_384": (64, 384, 8, 8),
+             "alexnet_b64_256": (64, 256, 8, 8),
+             "alexnet_b1": (1, 384, 8, 8)}.get(case, (256, 512, 4, 4))
     args, out = _backward_args(shape, cuda, relu=relu)
     if case == "misaligned_y":
         args[1] = _misaligned(args[1])

@@ -76,63 +76,68 @@ def _walk_epilogue(n, c, hw, geo):
     check that
     every thread of a tile carries y where the tile has a position for each
     (every vector tile at the main shapes) and that the GAP's stage length
-    is the one that fixes its order."""
+    is the one that fixes its order. The block's threads are walked
+    together, as arrays indexed by thread."""
     vw = 16 // geo.itemsize if geo.vector else 1
     written = np.zeros(n * c * hw, np.int32)
     staged = np.zeros(c * hw, np.int32)
     coefficients = np.zeros(c, np.int32)
+    # row_split groups of span threads; group g on rows g, g + split, ...
+    split = geo.row_split
+    span_threads = geo.threads // split
+    assert split == 1 or span_threads >= geo.tile_c * hw // vw
+    t = np.arange(geo.threads)
+    group_of, first_p = t // span_threads, t % span_threads
+    # the GAP: G lanes a channel, groups of channels a pass, stages of
+    # gap_len positions; lane g reads positions g, g + G, ... of each
+    assert geo.gap_len == min(hw, k2.MAX_GAP)
+    group = 1
+    while group < 32 and k2.STAGE * group < geo.gap_len:
+        group *= 2
     for cy in range(geo.grid[1]):
         c0 = cy * geo.tile_c
         tc = min(geo.tile_c, c - c0)
         assert tc >= 1
         positions = tc * hw // vw
         assert positions * vw == tc * hw
-        # row_split groups of span threads; group g on rows g, g + split, ...
-        split = geo.row_split
-        span_threads = geo.threads // split
-        assert split == 1 or span_threads >= geo.tile_c * hw // vw
-        groups = [(t // span_threads,
-                   np.arange(t % span_threads, positions, span_threads))
-                  for t in range(geo.threads)]
+        # thread t's positions: first_p, first_p + span_threads, ... (-1:
+        # none), for the threads of groups below split
+        rounds = np.arange(-(-positions // span_threads))
+        owned = first_p[:, None] + span_threads * rounds[None, :]
+        owned[(owned >= positions) | (group_of[:, None] >= split)] = -1
+        carries = (owned >= 0).any(axis=1)
         # a full tile puts every thread on y, but for the rounding of a
         # warp: one thread per position, or per STAGE passport floats with
         # the rows split between the groups
         if tc == geo.tile_c:
-            assert sum(g >= split or q.size == 0 for g, q in groups) < 32
+            assert (~carries).sum() < 32
             if positions >= geo.threads:
-                assert all(q.size for _, q in groups)
-        for g, p in groups:
-            if g >= split or p.size == 0:
-                continue
-            # a thread's channel is fixed: a vector never straddles two
-            assert np.array_equal(p * vw // hw, (p * vw + vw - 1) // hw)
+                assert carries.all()
+        # a thread's channel is fixed: a vector never straddles two
+        p = owned[owned >= 0]
+        assert np.array_equal(p * vw // hw, (p * vw + vw - 1) // hw)
+        for g in range(split):
+            p = owned[group_of == g]
+            p = p[p >= 0]
             span = (p[:, None] * vw + np.arange(vw)[None, :]).ravel()
-            for rx in range(geo.grid[0]):
-                rows = np.arange(rx * geo.tile_rows + g,
-                                 min(n, (rx + 1) * geo.tile_rows), split)
-                idx = (rows[:, None] * c * hw + c0 * hw
-                       + span[None, :]).ravel()
-                np.add.at(written, idx, 1)
-        for rx in range(geo.grid[0]):
-            assert rx * geo.tile_rows < n
-            if rx == 0:
-                coefficients[c0:c0 + tc] += 1
-        # the GAP: G lanes a channel, groups of channels a pass, stages of
-        # gap_len positions; lane g reads positions g, g + G, ... of each
-        assert geo.gap_len == min(hw, k2.MAX_GAP)
+            rows = np.concatenate([
+                np.arange(rx * geo.tile_rows + g,
+                          min(n, (rx + 1) * geo.tile_rows), split)
+                for rx in range(geo.grid[0])])
+            np.add.at(written, (rows[:, None] * c * hw + c0 * hw
+                                + span[None, :]).ravel(), 1)
+        assert (geo.grid[0] - 1) * geo.tile_rows < n
+        coefficients[c0:c0 + tc] += 1  # by the blocks of row range 0
         assert tc == 1 or geo.gap_len == hw
-        group = 1
-        while group < 32 and k2.STAGE * group < geo.gap_len:
-            group *= 2
         for first in range(0, tc, geo.threads // group):
-            for t in range(geo.threads):
-                ch = first + t // group
-                if ch >= tc:
-                    continue
-                for off in range(0, hw, geo.gap_len):
-                    length = min(geo.gap_len, hw - off)
-                    j = np.arange(t % group, length, group)
-                    np.add.at(staged, (c0 + ch) * hw + off + j, 1)
+            ch = first + t // group
+            for off in range(0, hw, geo.gap_len):
+                length = min(geo.gap_len, hw - off)
+                j = (t % group)[:, None] + group * np.arange(
+                    -(-length // group))[None, :]
+                read = (j < length) & (ch < tc)[:, None]
+                np.add.at(staged, ((c0 + ch)[:, None] * hw + off + j)[read],
+                          1)
     return written, staged, coefficients
 
 
@@ -209,6 +214,48 @@ def test_epilogue_geometry_at_the_main_shape():
         smem_bytes=512, vector=True)
 
 
+# AlexNet's passport blocks: features_4 (384 channels) and _5/_6 (256) at
+# 8x8 (CIFAR, batch 256) and 13x13 (ImageNet, batch 64)
+ALEXNET_EPILOGUE = {
+    # 8-channel tiles (2 KB of f32 a row), one float4 a thread, 24 or 16
+    # rows a block for about 512 blocks; bf16: the 128 threads the GAP
+    # wants (4 passport floats each) in two groups over 64 positions
+    (256, 384, 8, 8): dict(grid=(11, 48), threads=128, tile_c=8,
+                           tile_rows=24, gap_len=64, smem_bytes=128,
+                           vector=True),
+    (256, 256, 8, 8): dict(grid=(16, 32), threads=128, tile_c=8,
+                           tile_rows=16, gap_len=64, smem_bytes=128,
+                           vector=True),
+    # H*W = 169 is a multiple of neither 4 nor 8: the scalar path, 3
+    # channels (507 positions) a tile and a thread each, the GAP's 32 lanes
+    # a channel adding 5-6 positions each; 256 channels leave a last tile
+    # of one channel
+    (64, 384, 13, 13): dict(grid=(4, 128), threads=512, tile_c=3,
+                            tile_rows=16, gap_len=169, smem_bytes=48,
+                            vector=False),
+    (64, 256, 13, 13): dict(grid=(6, 86), threads=512, tile_c=3,
+                            tile_rows=11, gap_len=169, smem_bytes=48,
+                            vector=False),
+}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", sorted(ALEXNET_EPILOGUE))
+def test_epilogue_geometry_at_the_alexnet_shapes(shape, itemsize):
+    n, c, h, w = shape
+    geo = k2.epilogue_geometry(n, c, h * w, *POINTERS["aligned"],
+                               itemsize=itemsize)
+    want = ALEXNET_EPILOGUE[shape]
+    row_split = 2 if itemsize == 2 and want["vector"] else 1
+    assert geo == k2.EpilogueGeometry(**want, itemsize=itemsize,
+                                      row_split=row_split)
+    if h * w == 169:  # the last tile of 256 channels is one channel
+        assert c % geo.tile_c == (1 if c == 256 else 0)
+    written, staged, coefficients = _walk_epilogue(n, c, h * w, geo)
+    assert (written == 1).all() and (staged == 1).all()
+    assert (coefficients == 1).all()
+
+
 # -------------------------------------------------------------- K2-bwd
 
 BACKWARD_SHAPES = sorted(set(SMOKE.BWD_SHAPES) | set(EPILOGUE_SHAPES))
@@ -228,27 +275,29 @@ def _walk_backward(n, c, hw, geo, order):
     partials = np.zeros((c, geo.grid[0]), np.int32)
     planes = np.zeros(c * hw, np.int32)
     per = min(hw // vw, geo.threads)
+    t = np.arange(geo.threads)
     for cy in range(geo.grid[1]):
         c0 = cy * geo.tile_c
         tc = min(geo.tile_c, c - c0)
         positions = tc * hw // vw
         assert positions * vw == tc * hw
         assert geo.tile_c == 1 or positions <= geo.threads
-        owners = {}
-        for t in range(geo.threads):
-            chans = {p * vw // hw for p in range(t, positions, geo.threads)}
-            assert len(chans) <= 1  # a thread sums one channel
-            for ch in chans:
-                owners.setdefault(ch, set()).add(t)
-        for ch in range(tc):
-            read = set(range(ch * per, (ch + 1) * per))
-            assert owners[ch] <= read
-            # the other threads read hold no position (their sums are 0)
-            assert all(not owners[o] & read for o in owners if o != ch)
-            if 32 % per == 0:  # the shuffle path: one warp's lanes
-                assert ch * per // 32 == ((ch + 1) * per - 1) // 32
-        p = np.arange(positions)
-        span = (p[:, None] * vw + np.arange(vw)[None, :]).ravel()
+        # thread t's positions t, t + threads, ... and their channels
+        p = t[:, None] + geo.threads * np.arange(
+            -(-positions // geo.threads))[None, :]
+        chans = np.where(p < positions, p * vw // hw, -1)
+        owner = chans.max(axis=1)  # the channel a thread sums, or -1
+        held = chans >= 0
+        assert (np.where(held, chans, owner[:, None]) == owner[:, None]).all()
+        # channel ch's sums are read from threads [ch * per, (ch + 1) *
+        # per): those are its owners, and no other channel's
+        assert sorted(set(owner[owner >= 0])) == list(range(tc))
+        assert (t[owner >= 0] // per == owner[owner >= 0]).all()
+        if 32 % per == 0:  # the shuffle path: one warp's lanes
+            ch = np.arange(tc)
+            assert (ch * per // 32 == ((ch + 1) * per - 1) // 32).all()
+        q = np.arange(positions)
+        span = (q[:, None] * vw + np.arange(vw)[None, :]).ravel()
         for rx in range(geo.grid[0]):
             rows = np.arange(rx * geo.tile_rows,
                              min(n, (rx + 1) * geo.tile_rows))
@@ -296,6 +345,21 @@ def test_backward_geometry_at_the_attack_batch():
     geo = k2.backward_geometry(64, 512, 16, *POINTERS["aligned"])
     assert geo == k2.BackwardGeometry(grid=(16, 16), threads=128, tile_c=32,
                                       tile_rows=4, vector=True)
+
+
+@pytest.mark.parametrize("shape,want", [
+    # AlexNet's features_4 and _5/_6 at the attack CLIs' batch: 8-channel
+    # tiles, one float4 a thread, 6 and 4 rows a block; the forge attack's
+    # batch 1
+    ((64, 384, 8, 8), dict(grid=(11, 48), tile_rows=6)),
+    ((64, 256, 8, 8), dict(grid=(16, 32), tile_rows=4)),
+    ((1, 384, 8, 8), dict(grid=(1, 48), tile_rows=1)),
+])
+def test_backward_geometry_at_the_alexnet_shapes(shape, want):
+    n, c, h, w = shape
+    geo = k2.backward_geometry(n, c, h * w, *POINTERS["aligned"])
+    assert geo == k2.BackwardGeometry(threads=128, tile_c=8, vector=True,
+                                      **want)
 
 
 def test_backward_geometry_at_the_main_shape():

@@ -246,8 +246,8 @@ def test_unported_options_raise(resnet9):
     _, _, pmodel, _ = resnet9
     with pytest.raises(NotImplementedError):
         serve.Predictor(pmodel, folded=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model("alexnet", 10, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        build_model("resnet34", 10, device="cpu")
     with pytest.raises(ValueError):  # the model lives on the CPU
         serve.Predictor(pmodel, device="meta")
 
