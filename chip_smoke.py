@@ -67,6 +67,26 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
     flip ``--fidxs 4,5,6``, attack 3 for 1 epoch; the forge attack (V2
     only) ``--steps 50`` on the V2 best.ckpt; 3 K2 and 3 K2-bwd launches
     an ambiguity step, and one ambiguity step card vs CPU.
+12. Transfer learning (``transfer_path``): ``--transfer-learning`` through
+    the train CLIs, rtal and ftal, from the V2 and V3 best.ckpt of phase 7
+    and AlexNet V1's of phase 10, TL_EPOCHS epochs each on the synthetic
+    set (12,800 images) at batch 256, with launch counts (K2 f32 in the
+    derivation, the survival rows and V3's trigger-set retest; no other
+    kernel: TL is host-fed); the history's columns, finite rows, the
+    experiment's model unchanged, seconds per epoch; then two TL steps card
+    vs CPU from the V2 and the V3 checkpoint (V3's trigger-set rows
+    included), two train steps with remat="full" against "none" on the
+    card, and the peak memory and step time of each at batch 256.
+13. Folded inference (``fold_path``): ResNet18Private and AlexNet V2 from
+    ``--seed`` folded for each branch (``Predictor(folded=True)``), f32 and
+    bf16, against the unfolded model on the card, with no K2 launch in a
+    folded forward; then folded and unfolded Predictor img/s side by side.
+14. Interop (``interop_path``): the V2 best.ckpt exported to a reference
+    .pth and imported into a fresh model bit for bit, verified; a
+    hand-built torchvision ResNet18 through ``load_torch_pretrained``, card
+    vs CPU at 224 px; an ImageNet ResNet18Private private forward at 224
+    px (K2 at (64,512,7,7), held and timed in phase 3), batch 64, card vs
+    CPU in f32 and bf16.
 
 Each phase's wall time is printed on a line of its own.
 
@@ -100,6 +120,8 @@ MAIN_SHAPE = (REQUEST_BATCH, 512, 4, 4)  # every passport block of the path
 # ragged ones: H*W = 49 (ImageNet's layer4, the scalar path) and C not a
 # multiple of the channel tile
 CHECK_SHAPES = [MAIN_SHAPE, (1, 512, 4, 4), (1024, 512, 4, 4),
+                # the V3 trigger-set batch (prepare_wm's 2): the TL retest
+                (2, 512, 4, 4),
                 (4, 128, 8, 8), (2, 256, 16, 16), (2, 64, 56, 56),
                 (2, 128, 28, 28), (8, 512, 7, 7), (3, 40, 5, 3),
                 # AlexNet: features_4 (384 channels) and _5/_6 (256) at 8x8
@@ -107,10 +129,14 @@ CHECK_SHAPES = [MAIN_SHAPE, (1, 512, 4, 4), (1024, 512, 4, 4),
                 # (ImageNet, 224 px: the scalar path, tiles of 3 channels,
                 # a ragged last tile at 256)
                 (256, 384, 8, 8), (256, 256, 8, 8), (1, 384, 8, 8),
-                (1, 256, 8, 8), (64, 384, 13, 13), (64, 256, 13, 13)]
+                (1, 256, 8, 8), (64, 384, 13, 13), (64, 256, 13, 13),
+                # ImageNet ResNet18's layer4 at 224 px (interop_path)
+                (64, 512, 7, 7)]
 # K2 and K2-bwd timed at AlexNet's shapes besides the main ones
 ALEXNET_TIMED = [(256, 384, 8, 8), (256, 256, 8, 8), (64, 384, 13, 13)]
 ALEXNET_BWD_TIMED = [(64, 384, 8, 8), (64, 256, 8, 8)]
+# K2 at ImageNet ResNet18Private's layer4 (224 px, the interop phase's batch)
+IMAGENET_K2 = (64, 512, 7, 7)
 # the card against the plain version of the same arithmetic: the GAP sums
 # in another order (tests/test_pallas.py's tolerance)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -195,6 +221,15 @@ ALEXNET_PASSPORT = ["--passport-config", ALEXNET_CONFIG, "--key-type",
 ALEXNET_EPOCHS = 5
 ALEXNET_K2 = 3  # K2 launches of a passport forward: features_4, 5 and 6
 IMAGENET_SIZE, IMAGENET_BATCH = 224, 64
+# transfer learning: the paper's fine-tuning removal attack, 2 epochs (cut
+# from the recipe's) of the CLIs' 12,800 synthetic images at batch 256
+TL_EPOCHS, TL_IMAGES = 2, TRAIN_IMAGES
+REMAT_STEPS = 10  # timed train steps of each remat turn
+RESNET_CONFIG = "passport_configs/resnet18_passport.json"
+RESNET_K2 = 5  # K2 launches of a ResNet18Private private forward
+# folded against unfolded logits on the card: f32 at tests/test_fold.py's
+# tolerance; bf16 norm-wise, as the serving path holds bf16 logits
+FOLD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def log(*parts):
@@ -408,6 +443,7 @@ def check_epilogue(gen, dtype=torch.float32) -> float:
     cases.append(("misaligned y and key_out", (misaligned(y),
                                                misaligned(key_out), *rest)))
     for label, args in cases:
+        case_worst, unequal = 0.0, 0
         for relu in (True, False):
             got = passport_epilogue(*args, relu=relu)
             again = passport_epilogue(*args, relu=relu)
@@ -429,7 +465,9 @@ def check_epilogue(gen, dtype=torch.float32) -> float:
                     raise AssertionError(
                         f"passport_epilogue {label} {dtype}: {g.dtype}, "
                         f"{bf16_ulps(g, w)} ulps from the plain version")
-                worst = max(worst, (g.float() - w.float()).abs().max().item())
+                err = (g.float() - w.float()).abs().max().item()
+                case_worst, worst = max(case_worst, err), max(worst, err)
+                unequal += int((g != w).sum())
             if dtype != torch.float32:
                 f32 = passport_epilogue(args[0].float().contiguous(),
                                         *args[1:], relu=relu)
@@ -439,7 +477,9 @@ def check_epilogue(gen, dtype=torch.float32) -> float:
                                          "bf16 form's scale/bias differ "
                                          "from the f32 form's")
         log(f"passport_epilogue {label} {dtype}: agrees with the plain "
-            "version (relu on and off), bit-identical over two calls")
+            f"version (relu on and off; largest error {case_worst}, "
+            f"{unequal} elements not bit for bit), bit-identical over two "
+            "calls")
     return worst
 
 
@@ -1177,7 +1217,8 @@ def cli_path(smi: str, launches, reset):
     (train_v1), then V2 from its last.ckpt with pretrained-derived shuffle
     keys, bf16 and the device-resident epoch (train_v23), then --eval of
     that run, then its best.ckpt loaded into a fresh model and verified;
-    then one V3 epoch. Returns the V2 run's launch counts and best.ckpt."""
+    then one V3 epoch. Returns the V2 run's launch counts and the V2 and V3
+    runs' best.ckpt."""
     import shutil
 
     from deepipr_tpu_torch.cli import train_v1, train_v23
@@ -1193,7 +1234,10 @@ def cli_path(smi: str, launches, reset):
     log(f"entry point: scheme 0, 2 epochs, in {time.perf_counter() - t:.1f} s")
     pretrained = os.path.join(run1.logdir, "models", "last.ckpt")
 
-    epochs = 3
+    # the last epoch's mean sign accuracy must read 1.0: after 3 epochs a
+    # scale near 0 still crossed it in one step of one run in seven on the
+    # card (0.9999922), while the sign loss falls each epoch
+    epochs = 4
     reset()
     t = time.perf_counter()
     run2 = train_v23.main(CLI_COMMON + CLI_V2 + [
@@ -1251,7 +1295,8 @@ def cli_path(smi: str, launches, reset):
                              f"{sorted(header)}")
     log(f"entry point: V3 bf16 --epoch-scan, 1 epoch, in "
         f"{time.perf_counter() - t:.1f} s: {history(run3.logdir)[-1]}")
-    return counts, os.path.join(run2.logdir, "models", "best.ckpt")
+    return counts, os.path.join(run2.logdir, "models", "best.ckpt"), \
+        os.path.join(run3.logdir, "models", "best.ckpt")
 
 
 # ------------------------------------------------------------ attacks
@@ -1690,6 +1735,535 @@ def alexnet_attacks(best: dict, smi: str, launches, reset) -> dict:
     return counts
 
 
+# ------------------------------------------------- transfer learning
+
+@contextlib.contextmanager
+def clone_start(seen: dict):
+    """Record the transfer-learning clone and its weights before its first
+    step (``seen['model']``, ``seen['start']``, CPU copies)."""
+    from deepipr_tpu_torch.train import transfer
+
+    real = transfer.make_train_step
+
+    def spy(model, *args, **kwargs):
+        seen["model"] = model
+        seen["start"] = {k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()}
+        return real(model, *args, **kwargs)
+
+    transfer.make_train_step = spy
+    try:
+        yield
+    finally:
+        transfer.make_train_step = real
+
+
+def tl_argv(arch: str, best: str, tl_scheme: str, logdir: str) -> list:
+    config = ALEXNET_CONFIG if arch == "alexnet" else RESNET_CONFIG
+    return ["--arch", arch, "--dataset", "synthetic", "--batch-size",
+            str(TRAIN_BATCH), "--passport-config", config,
+            "--transfer-learning", "--tl-dataset", "synthetic",
+            "--tl-scheme", tl_scheme, "--pretrained-path", best,
+            "--epochs", str(TL_EPOCHS), "--logdir", logdir]
+
+
+def transfer_path(bests: dict, smi: str, launches, reset) -> dict:
+    """``--transfer-learning`` through the train CLIs in-process, rtal and
+    ftal, from each of ``bests`` ({label: (arch, scheme, best.ckpt)}),
+    TL_EPOCHS epochs over TL_IMAGES synthetic images at batch 256. Each run:
+    the columns JAX writes (train_*, valid_*, old_wm_passport_* per
+    passport layer, backdoor_* for V3), finite rows, ``exp.model`` bit for
+    bit the loaded checkpoint afterwards, and K2 f32 launched exactly as
+    the run derives: the clone's surgery, each epoch's survival rows (V2/V3)
+    and V3's trigger-set retest through the copied-back model. Returns the
+    path's launch counts."""
+    from deepipr_tpu_torch.attacks.common import plkey_to_module_path
+    from deepipr_tpu_torch.cli import train_v1, train_v23
+
+    logdir = os.path.join("build", "chip_smoke_tl")
+    counts = {}
+    seconds = {}
+    for label, (arch, scheme, best) in bests.items():
+        main = train_v1 if scheme == 1 else train_v23
+        flags = {1: ["--train-passport"], 2: [],
+                 3: ["--train-backdoor"]}[scheme]
+        per_forward = ALEXNET_K2 if arch == "alexnet" else RESNET_K2
+        for tl_scheme in ("rtal", "ftal"):
+            reset()
+            t = time.perf_counter()
+            exp = main.main(tl_argv(arch, best, tl_scheme, logdir) + flags,
+                            synthetic_train=TL_IMAGES)
+            wall = time.perf_counter() - t
+            got = launches()
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+            rows = history(os.path.join(exp.logdir, "tl_1"))
+            seconds[f"{label} {tl_scheme}"] = wall / TL_EPOCHS
+            log(f"transfer learning {label} {tl_scheme}: {TL_EPOCHS} epochs "
+                f"in {wall:.1f} s ({wall / TL_EPOCHS:.2f} s an epoch, "
+                f"setup and checkpoints included); launches {got}; last row "
+                f"{rows[-1]} [{smi}]")
+            want_cols = {"epoch", "train_acc", "train_loss", "train_sign_acc",
+                         "train_sign_loss", "valid_acc", "valid_loss"}
+            if scheme == 3:
+                want_cols |= {f"backdoor_{k}" for k in (
+                    "acc_public", "acc_private", "loss_public",
+                    "loss_private", "total_acc")}
+            branch = "public" if scheme == 1 else "private"
+            want_cols |= {f"old_wm_passport_{branch}_{p.replace('.', '/')}"
+                          for p in map(plkey_to_module_path, exp.plkeys)}
+            if set(rows[-1]) != want_cols or len(rows) != TL_EPOCHS:
+                raise AssertionError(f"TL {label} {tl_scheme}: columns "
+                                     f"{sorted(rows[-1])}, want "
+                                     f"{sorted(want_cols)}")
+            if not all(np.isfinite(v) for r in rows for v in r.values()):
+                raise AssertionError(f"TL {label} {tl_scheme}: {rows}")
+            loaded = torch.load(best, map_location="cpu",
+                                weights_only=True)["model"]
+            changed = [k for k, v in exp.model.state_dict().items()
+                       if not torch.equal(v.cpu(), loaded[k])]
+            if changed:
+                raise AssertionError(f"TL {label} {tl_scheme} wrote the "
+                                     f"experiment's model: {changed[:4]}")
+            # K2 f32: the surgery's derivation, then each epoch's survival
+            # rows (V2/V3) and trigger-set retest (V3), nothing else
+            k2 = per_forward
+            if scheme != 1:
+                k2 += TL_EPOCHS * per_forward
+            if scheme == 3:
+                k2 += TL_EPOCHS * per_forward * len(exp.wm_data)
+            want = {"passport_epilogue": k2}
+            if got != {**dict.fromkeys(got, 0), **want}:
+                raise AssertionError(f"TL {label} {tl_scheme} launches {got}, "
+                                     f"expected {want}")
+            del exp
+    log(f"transfer learning: seconds an epoch {seconds} [{smi}]")
+    tl_parity(bests["ResNet18Private V2"][2])
+    # V3's checkpoint gives logits in the thousands (valid loss near 6,000
+    # on the card), so the losses of its fine-tuned weights carry the
+    # updates' spread (3e-2 of their norm, within UPDATE_TOL): they are held
+    # at UPDATE_TOL across the runs, and at TRAIN_TOL on equal weights
+    tl_parity(bests["ResNet18Private V3"][2], ["--train-backdoor"],
+              loss_rtol=UPDATE_TOL)
+    remat_check(0)
+    remat_cost(0, smi)
+    return counts
+
+
+def remat_check(seed: int) -> None:
+    """Two split V2 train steps (batch PARITY_BATCH, K1 input stage) with
+    remat="full" against remat="none" on the card, cuDNN deterministic:
+    parameters and BN running statistics bit for bit (the recomputed
+    forward takes no second EMA step), one K1 launch a step either way."""
+    from deepipr_tpu_torch.data.datasets import synthetic_dataset
+    from deepipr_tpu_torch.data.device_augment import draw_augment
+    from deepipr_tpu_torch.ops.fused_augment import fused_augment
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.train.steps import make_train_step
+
+    x, y, _, _ = synthetic_dataset(num_train=2 * PARITY_BATCH, num_test=0,
+                                   size=32, seed=seed + 5)
+    gen = torch.Generator().manual_seed(seed + 6)
+    draws = [tuple(t.cuda() for t in draw_augment(gen, PARITY_BATCH,
+                                                  TRAIN_PAD))
+             for _ in range(2)]
+    states = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in ("none", "full"):
+            model = train_model(seed + 5, "cuda")
+            state = TrainState.create(model, TRAIN_LR)
+            step = make_train_step(model, True, pad=TRAIN_PAD, remat=remat,
+                                   draws=lambda s, n: draws[s])
+            before = fused_augment.launches
+            for i in range(2):
+                rows = slice(i * PARITY_BATCH, (i + 1) * PARITY_BATCH)
+                step(state, {"image": x[rows], "label": y[rows]})
+            if fused_augment.launches - before != 2:
+                raise AssertionError(f"remat={remat}: "
+                                     f"{fused_augment.launches - before} "
+                                     "K1 launches in 2 steps")
+            states[remat] = {k: v.clone()
+                             for k, v in model.state_dict().items()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    differ = [k for k, v in states["none"].items()
+              if not torch.equal(states["full"][k], v)]
+    if differ:
+        raise AssertionError(f"remat='full' differs from 'none' in "
+                             f"{differ[:6]}")
+    log(f"remat='full': 2 split V2 steps at batch {PARITY_BATCH} on the "
+        f"card, parameters and BN statistics bit for bit with 'none'")
+
+
+def remat_cost(seed: int, smi: str) -> dict:
+    """What remat="full" buys and costs: a split V2 train step of
+    ResNet18Private at batch TRAIN_BATCH (f32, K1 input stage) with
+    remat="none" and "full" in turns (none, full, full, none). Each turn
+    takes two warm-up steps, then REMAT_STEPS steps timed by CUDA events,
+    with torch.cuda.max_memory_allocated over them: the peak, and the peak
+    less what was allocated before them (activations and the step's
+    temporaries). Returns {remat: [(ms a step, peak MiB, above MiB)]}."""
+    from deepipr_tpu_torch.data.datasets import synthetic_dataset
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.train.steps import make_train_step
+
+    x, y, _, _ = synthetic_dataset(num_train=TRAIN_BATCH, num_test=0,
+                                   size=32, seed=seed + 7)
+    batch = {"image": torch.from_numpy(x).cuda(),
+             "label": torch.from_numpy(y).cuda()}
+    mib = 2.0 ** 20
+    out = {}
+    for remat in ("none", "full", "full", "none"):
+        model = train_model(seed + 5, "cuda")
+        state = TrainState.create(model, TRAIN_LR)
+        step = make_train_step(model, True, pad=TRAIN_PAD, remat=remat)
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REMAT_STEPS):
+            step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out.setdefault(remat, []).append(
+            (start.elapsed_time(end) / REMAT_STEPS, peak / mib,
+             (peak - before) / mib))
+        del model, state, step
+    log(f"remat cost, split V2 step at batch {TRAIN_BATCH} (f32, K1 input), "
+        f"turns none/full/full/none as (ms a step, peak MiB, MiB above "
+        f"the resident state): {out} [{smi}]")
+    return out
+
+
+def tl_parity(best: str, flags=(), loss_rtol: float = TRAIN_TOL["rtol"]
+              ) -> None:
+    """Two TL steps (rtal, batch PARITY_BATCH) from a ResNet18Private V2 or
+    V3 (``flags``) best.ckpt on the card against the same on the CPU: the
+    rows at TRAIN_TOL, survival exactly, the losses of the fine-tuned
+    weights (valid_loss, backdoor_loss_*) within ``loss_rtol`` of the CPU's;
+    the clone's BN statistics at TRAIN_TOL and each parameter's update
+    within UPDATE_TOL of its norm (train_parity's f32 bounds). Then the
+    card's survival rows and V3's trigger-set retest (K2 at (2,512,4,4))
+    on the CPU run's fine-tuned weights against the CPU's rows: survival
+    and accuracies exactly, losses at TRAIN_TOL."""
+    import shutil
+
+    from deepipr_tpu_torch.attacks.common import plkey_to_module_path
+    from deepipr_tpu_torch.cli import train_v23
+    from deepipr_tpu_torch.train import transfer
+
+    def differ(got: dict, want: dict, loss_rtol: float) -> list:
+        out = []
+        for k, v in want.items():
+            rtol = loss_rtol if k in ("valid_loss", "backdoor_loss_public",
+                                      "backdoor_loss_private") else \
+                TRAIN_TOL["rtol"]
+            if (got[k] != v if k.startswith("old_wm_") else
+                    not abs(got[k] - v) <= TRAIN_TOL["atol"] + rtol * abs(v)):
+                out.append(k)
+        return out
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        logdir = os.path.join("build", f"chip_smoke_tl_parity_{dev}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        argv = tl_argv("resnet", best, "rtal", logdir) + list(flags)
+        argv[argv.index("--batch-size") + 1] = str(PARITY_BATCH)
+        argv[argv.index("--epochs") + 1] = "1"
+        seen = {}
+        with clone_start(seen):
+            exp = train_v23.main(argv, device=dev,
+                                 synthetic_train=2 * PARITY_BATCH,
+                                 synthetic_test=PARITY_BATCH)
+        rows = history(os.path.join(exp.logdir, "tl_1"))
+        final = {k: v.detach().cpu() for k, v in
+                 seen["model"].state_dict().items()}
+        runs[dev] = (rows[-1], seen["start"], final, exp, seen["model"])
+    (cpu_row, start, cpu, _, _) = runs["cpu"]
+    (gpu_row, _, gpu, gexp, gclone) = runs["cuda"]
+    bad = differ(gpu_row, cpu_row, loss_rtol)
+    worst = {}
+    for k, want in cpu.items():
+        if "running_" in k:
+            if not torch.allclose(gpu[k], want, **TRAIN_TOL):
+                bad.append(k)
+            continue
+        update = (want - start[k]).norm().item()
+        worst[k] = (gpu[k] - want).norm().item() / max(update, 1e-30)
+        if worst[k] > UPDATE_TOL:
+            bad.append(k)
+    name = max(worst, key=worst.get)
+    log(f"TL parity {' '.join(flags) or 'V2'}, 2 steps at batch "
+        f"{PARITY_BATCH}, card vs CPU: row "
+        f"{gpu_row} vs {cpu_row}; worst update {worst[name]:.3g} of its "
+        f"norm at {name}")
+
+    # the card's copied-back rows on the CPU's fine-tuned weights
+    with torch.no_grad():
+        gclone.load_state_dict(cpu)
+    plpaths = [plkey_to_module_path(k) for k in gexp.plkeys]
+    same = {f"old_wm_passport_{k}": v for k, v in
+            transfer._signature_survival(gexp, gclone, plpaths).items()}
+    if gexp.train_backdoor:
+        copied = copy.deepcopy(gexp.model)
+        transfer._copy_back(gexp, gclone, copied)
+        same.update({f"backdoor_{k}": v for k, v in
+                     gexp._dual_eval(gexp.wm_data, copied).items()})
+    want = {k: cpu_row[k] for k in same}
+    bad += [f"same weights: {k}" for k in differ(same, want, TRAIN_TOL["rtol"])
+            + [k for k in same if "acc" in k and same[k] != want[k]]]
+    log(f"TL parity {' '.join(flags) or 'V2'}, the card's copied-back rows "
+        f"on the CPU's fine-tuned weights: {same} vs {want}")
+    if bad:
+        raise AssertionError(f"TL card and CPU differ in {bad}")
+
+
+# -------------------------------------------------------------- folding
+
+def _norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def fold_path(seed: int, smi: str, launches, reset) -> dict:
+    """``Predictor(folded=True)`` for each branch of ResNet18Private and
+    AlexNet V2 (random weights, passports and BN statistics from ``seed``),
+    f32 and bf16, against the unfolded model on the card: f32 at FOLD_TOL,
+    bf16 within BF16_LOGITS_NORM_TOL of the norm; a folded forward
+    launches no kernel, the unfolded private one K2 in the dtype's form.
+    Then folded and unfolded img/s in turns. Returns the path's launch
+    counts (the unfolded forwards' K2)."""
+    from deepipr_tpu_torch.serve import Predictor
+
+    batches = request_batches(1, seed)
+    counts = {}
+    for arch in ("resnet18", "alexnet"):
+        per_forward = ALEXNET_K2 if arch == "alexnet" else RESNET_K2
+        for form, dtype in (("passport_epilogue", None),
+                            ("passport_epilogue_bf16", BF16)):
+            gpu_model = random_model(seed, dtype, arch).to("cuda")
+            x = batches[0]["image"]
+            reset()
+            for ind in (0, 1):
+                folded = Predictor(gpu_model, ind=ind, folded=True)
+                before = launches()
+                got = folded.logits(x)
+                after = launches()
+                if after != before:
+                    raise AssertionError(f"a folded forward launched "
+                                         f"{after} (before {before})")
+                want = Predictor(gpu_model, ind=ind).logits(x)
+                k2 = launches()[form] - after[form]
+                if k2 != (per_forward if ind == 1 else 0):
+                    raise AssertionError(f"unfolded ind={ind}: {k2} {form}")
+                if not torch.isfinite(got).all():
+                    raise AssertionError("non-finite folded logits")
+                err = _norm_err(got, want)
+                if dtype is None:
+                    torch.testing.assert_close(got, want, **FOLD_TOL)
+                elif err > BF16_LOGITS_NORM_TOL:
+                    raise AssertionError(f"bf16 folded logits {err} of the "
+                                         "norm from the unfolded model's")
+                log(f"fold {arch} {dtype or torch.float32} ind={ind}: folded "
+                    f"vs unfolded logits on the card, largest error "
+                    f"{(got.float() - want.float()).abs().max().item():.3g}, "
+                    f"{err:.3g} of the norm; 0 launches folded")
+            for k, v in launches().items():
+                counts[k] = counts.get(k, 0) + v
+            label = f"{arch} V2 {'bf16' if dtype else 'f32 (TF32 off)'}"
+            folded_throughput(gpu_model, smi, label)
+            del gpu_model
+    return counts
+
+
+def folded_throughput(gpu_model, smi: str, label: str) -> None:
+    """Predictor img/s, folded and unfolded in turns (unfolded, folded,
+    folded, unfolded), each branch, batch 256 and 1024, input on the card;
+    the public branch's device time by kernel at batch 1024, folded and
+    unfolded."""
+    from deepipr_tpu_torch.serve import Predictor
+
+    gen = torch.Generator().manual_seed(7)
+    for batch in (256, 1024):
+        x = torch.randn((batch, 32, 32, 3), generator=gen).cuda()
+        for ind in (0, 1):
+            preds = {"unfolded": Predictor(gpu_model, ind=ind),
+                     "folded": Predictor(gpu_model, ind=ind, folded=True)}
+            rates = {k: [] for k in preds}
+            for name in ("unfolded", "folded", "folded", "unfolded"):
+                pred = preds[name]
+                for _ in range(3):
+                    pred.logits(x)
+                torch.cuda.synchronize()
+                reps = 20
+                t = time.perf_counter()
+                for _ in range(reps):
+                    pred.logits(x)
+                torch.cuda.synchronize()
+                rates[name].append(reps * batch / (time.perf_counter() - t))
+            log(f"throughput: Predictor {label} ind={ind} batch={batch}: "
+                f"folded {rates['folded'][0]:.1f} / {rates['folded'][1]:.1f}"
+                f" img/s, unfolded {rates['unfolded'][0]:.1f} / "
+                f"{rates['unfolded'][1]:.1f} img/s [{smi}]")
+            if batch == 1024 and ind == 0:  # where the public branch's time goes
+                for name, pred in preds.items():
+                    profiled(lambda: pred.logits(x), 5,
+                             f"{label} {name} ind=0 forward, batch {batch}",
+                             smi, top=6)
+
+
+# -------------------------------------------------------------- interop
+
+def interop_path(best: str, seed: int, smi: str, launches, reset) -> dict:
+    """The V2 best.ckpt (f32 model) exported to a reference-layout .pth and
+    imported into a fresh model bit for bit, its genuine detection rate 1.0
+    (K2); a hand-built torchvision ResNet18 through
+    ``load_torch_pretrained``, card vs CPU at 224 px; an ImageNet
+    ResNet18Private private forward at 224 px, batch 64 (K2 at
+    (64,512,7,7)), card vs CPU in f32 and bf16. Returns the path's launch
+    counts."""
+    from deepipr_tpu_torch.interop.torch_export import save_torch_checkpoint
+    from deepipr_tpu_torch.interop.torch_import import load_torch_checkpoint
+    from deepipr_tpu_torch.interop.torchvision_import import (
+        load_torch_pretrained,
+    )
+    from deepipr_tpu_torch.models.registry import build_model
+    from deepipr_tpu_torch.serve import Predictor, verify_ownership
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.utils.checkpoint import load_state
+
+    os.makedirs(os.path.join("build", "chip_smoke_interop"), exist_ok=True)
+    pth = os.path.join("build", "chip_smoke_interop", "v2.pth")
+    trained = train_model(12345, "cuda")
+    load_state(best, TrainState.create(trained, 0.0), restore_opt=False)
+    save_torch_checkpoint(pth, trained)
+    fresh = train_model(54321, "cuda")
+    reset()
+    load_torch_checkpoint(pth, fresh)
+    differ = [k for k, v in trained.state_dict().items()
+              if not torch.equal(fresh.state_dict()[k], v)]
+    if differ:
+        raise AssertionError(f".pth round trip changed {differ[:4]}")
+    verdict = verify_ownership(fresh, (1, 32, 32, 3), private=True)
+    if verdict["detection_rate"] != 1.0:
+        raise AssertionError(f"the imported V2 model does not verify: "
+                             f"{verdict}")
+    if launches()["passport_epilogue"] != RESNET_K2:
+        raise AssertionError(f"verify_ownership launches {launches()}")
+    log(f"interop: V2 best.ckpt -> reference .pth -> a fresh model, bit for "
+        f"bit; detection {verdict['layers']}")
+    counts = launches()
+    del trained, fresh
+
+    rng = np.random.default_rng(seed)
+    sd = torchvision_resnet18(rng)
+    tv = os.path.join("build", "chip_smoke_interop", "tv_resnet18.pth")
+    torch.save(sd, tv)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = build_model("resnet18", 1000, input_size=IMAGENET_SIZE,
+                                  device=dev)
+        load_torch_pretrained(tv, models[dev], "resnet18")
+    if not torch.equal(models["cuda"].linear.weight.cpu(), sd["fc.weight"]):
+        raise AssertionError("torchvision fc.weight did not reach linear")
+    x = torch.randn((4, IMAGENET_SIZE, IMAGENET_SIZE, 3),
+                    generator=torch.Generator().manual_seed(seed + 11))
+    gpu = Predictor(models["cuda"]).logits(x).cpu()
+    cpu = Predictor(models["cpu"], device="cpu").logits(x)
+    torch.testing.assert_close(gpu, cpu, **LOGITS_TOL)
+    log(f"interop: hand-built torchvision ResNet18 via "
+        f"load_torch_pretrained, 224 px, card vs CPU largest error "
+        f"{(gpu - cpu).abs().max().item():.3g}")
+    del models
+
+    for form, dtype in (("passport_epilogue", None),
+                        ("passport_epilogue_bf16", BF16)):
+        reset()
+        imagenet_resnet_forward(seed, form, dtype, launches)
+        for k, v in launches().items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def torchvision_resnet18(rng) -> dict:
+    """torchvision ResNet-18's state-dict keys and shapes with random
+    weights and BN statistics (no pretrained weights are downloaded)."""
+    def conv(co, ci, k):
+        return rng.normal(0, (2 / (co * k * k)) ** 0.5, (co, ci, k, k))
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, c)
+        sd[f"{prefix}.bias"] = rng.normal(0, 0.1, c)
+        sd[f"{prefix}.running_mean"] = rng.normal(0, 0.1, c)
+        sd[f"{prefix}.running_var"] = rng.uniform(0.5, 2.0, c)
+
+    sd = {"conv1.weight": conv(64, 3, 7)}
+    bn("bn1", 64)
+    chans = {"layer1": (64, 64), "layer2": (64, 128),
+             "layer3": (128, 256), "layer4": (256, 512)}
+    for layer, (cin, cout) in chans.items():
+        for b in range(2):
+            sd[f"{layer}.{b}.conv1.weight"] = conv(cout,
+                                                   cin if b == 0 else cout, 3)
+            sd[f"{layer}.{b}.conv2.weight"] = conv(cout, cout, 3)
+            bn(f"{layer}.{b}.bn1", cout)
+            bn(f"{layer}.{b}.bn2", cout)
+            if b == 0 and layer != "layer1":
+                sd[f"{layer}.0.downsample.0.weight"] = conv(cout, cin, 1)
+                bn(f"{layer}.0.downsample.1", cout)
+    sd["fc.weight"] = rng.normal(0, 512 ** -0.5, (1000, 512))
+    sd["fc.bias"] = rng.normal(0, 0.1, 1000)
+    out = {k: torch.from_numpy(np.asarray(v, np.float32))
+           for k, v in sd.items()}
+    out.update({k.replace("running_mean", "num_batches_tracked"):
+                torch.tensor(0) for k in sd if k.endswith("running_mean")})
+    return out
+
+
+def imagenet_resnet_forward(seed: int, form: str, dtype, launches) -> None:
+    """One private forward of an ImageNet ResNet18Private (1000 classes,
+    224 px, resnet18_passport.json: K2 at (64,512,7,7)) through Predictor,
+    against the CPU: f32 at LOGITS_TOL on the batch; bf16 within
+    BF16_LOGITS_NORM_TOL of the norm on 8 rows."""
+    from deepipr_tpu_torch.serve import Predictor
+
+    cpu_model = random_model(seed, dtype, "resnet18", True, num_classes=1000,
+                             size=IMAGENET_SIZE)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    if tuple(gpu_model.layer4_0.convbn_2.key.shape) != (1, 512, 7, 7):
+        raise AssertionError("the ImageNet ResNet's layer4 is not 7x7")
+    x = torch.randn((IMAGENET_BATCH, IMAGENET_SIZE, IMAGENET_SIZE, 3),
+                    generator=torch.Generator().manual_seed(seed + 10))
+    before = launches()[form]
+    gpu_logits = Predictor(gpu_model, ind=1).logits(x).cpu()
+    if launches()[form] - before != RESNET_K2:
+        raise AssertionError(f"ImageNet ResNet private forward: "
+                             f"{launches()[form] - before} {form} launches")
+    rows = IMAGENET_BATCH if dtype is None else 8
+    cpu_logits = Predictor(cpu_model, ind=1, device="cpu").logits(x[:rows])
+    if gpu_logits.shape != (IMAGENET_BATCH, 1000) or \
+            not torch.isfinite(gpu_logits).all():
+        raise AssertionError("non-finite or misshapen ImageNet logits")
+    if dtype is None:
+        torch.testing.assert_close(gpu_logits, cpu_logits, **LOGITS_TOL)
+        err = (gpu_logits - cpu_logits).abs().max().item()
+    else:
+        err = _norm_err(gpu_logits[:rows], cpu_logits)
+        if err > BF16_LOGITS_NORM_TOL:
+            raise AssertionError(f"bf16 ImageNet ResNet logits differ from "
+                                 f"the CPU's by {err} of their norm")
+    log(f"ImageNet ResNet18Private private forward, batch {IMAGENET_BATCH}, "
+        f"{dtype or torch.float32}: {RESNET_K2} {form} launches at 7x7; card "
+        f"vs CPU on {rows} rows: {err:.3g} "
+        f"({'largest error' if dtype is None else 'of the norm'})")
+
+
 # ----------------------------------------------------------------- main
 
 def shape_key(shape) -> str:
@@ -1732,7 +2306,8 @@ def main() -> int:
         timing, by_shape = {}, {}
         for form, dtype in (("passport_epilogue", torch.float32),
                             ("passport_epilogue_bf16", BF16)):
-            for shape in (MAIN_SHAPE, (1024, 512, 4, 4), *ALEXNET_TIMED):
+            for shape in (MAIN_SHAPE, (1024, 512, 4, 4), *ALEXNET_TIMED,
+                          IMAGENET_K2):
                 t = time_epilogue(gen, timer, shape, smi, dtype)
                 log(f"{form} {shape}: {json.dumps(t)} [{smi}]")
                 by_shape.setdefault(form, {})[shape_key(shape)] = t
@@ -1817,7 +2392,7 @@ def main() -> int:
             f"[{smi}]")
 
     with phase("resnet cli"):
-        paths["resnet_cli"], best = cli_path(smi, launches, reset)
+        paths["resnet_cli"], best, v3_best = cli_path(smi, launches, reset)
     with phase("resnet attacks"):
         paths["resnet_attacks"] = attack_path(best, smi, launches, reset)
         ambiguity_checks(attack_argv(best), launches, reset)
@@ -1842,6 +2417,28 @@ def main() -> int:
     if not all(alexnet.values()):
         raise AssertionError(f"a kernel form was not launched on the AlexNet "
                              f"paths: {alexnet}")
+
+    with phase("transfer"):
+        paths["transfer"] = transfer_path({
+            "ResNet18Private V2": ("resnet", 2, best),
+            "ResNet18Private V3": ("resnet", 3, v3_best),
+            "AlexNet V1": ("alexnet", 1, alexnet_best[1])},
+            smi, launches, reset)
+    with phase("fold"):
+        paths["fold"] = fold_path(args.seed, smi, launches, reset)
+    with phase("interop"):
+        paths["interop"] = interop_path(best, args.seed, smi, launches,
+                                        reset)
+    # K2 f32 on the TL retests; both K2 forms behind the fold checks and in
+    # the ImageNet ResNet forwards
+    for name, forms in (("transfer", ("passport_epilogue",)),
+                        ("fold", ("passport_epilogue",
+                                  "passport_epilogue_bf16")),
+                        ("interop", ("passport_epilogue",
+                                     "passport_epilogue_bf16"))):
+        if not all(paths[name].get(form) for form in forms):
+            raise AssertionError(f"{forms} not all launched on the {name} "
+                                 f"path: {paths[name]}")
     log(f"launches by path: {json.dumps(paths)}")
 
     # K2-bwd is the gradient of K2. It replaces no Pallas kernel: the JAX

@@ -3,10 +3,10 @@ setup blocks in passport_attack_*.py / pruning_attack.py / flip_attack.py).
 
 Counterpart of ``deepipr_tpu/attacks/cli_common.py``: the same flags and
 defaults, on the port. The attacked checkpoint is one of the port's
-(``utils/checkpoint.py``); reference ``.pth``/``.pt`` files raise
-``NotImplementedError`` (ROADMAP queue 1, item 2), and there is no
-non-strict load (W8). Models are built on ``device``, the card unless the
-caller asks for the CPU.
+(``utils/checkpoint.py``) or a reference-layout ``.pth``/``.pt``
+(``interop/torch_import.py``, the reference attack scripts' own load
+path); there is no non-strict load (W8). Models are built on ``device``,
+the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 
 from deepipr_tpu_torch.data.datasets import prepare_dataset, prepare_wm
 from deepipr_tpu_torch.interop.surgery import copy_matching
+from deepipr_tpu_torch.interop.torch_import import load_torch_checkpoint
 from deepipr_tpu_torch.models.registry import build_model
 from deepipr_tpu_torch.train.state import TrainState
 from deepipr_tpu_torch.utils.checkpoint import load_state
@@ -104,14 +105,11 @@ def load_attacked_model(args, learnable_affine: bool = False,
     passport_kwargs, plkeys = construct_passport_kwargs(
         cfg, args.norm_type, "shuffle", 0.1
     )
-    if args.loadpath.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"--loadpath {args.loadpath}: reference .pth/.pt checkpoints are "
-            "not ported yet (ROADMAP queue 1, item 2: interop); pass a "
-            "checkpoint of the port")
+    torch_file = args.loadpath.endswith((".pth", ".pt"))
     separate = bool(getattr(args, "separate_stats", False))
-    if args.loadpath and not separate and _ckpt_has_separate_stats(
-            args.loadpath):
+    # a reference file has no per-branch BN statistics
+    if args.loadpath and not torch_file and not separate and \
+            _ckpt_has_separate_stats(args.loadpath):
         # loading a separate-stats checkpoint into a shared-stats template
         # would fail on the private branch's running stats — enable instead
         print("NOTE: checkpoint carries per-branch BN stats (bn_private); "
@@ -130,7 +128,9 @@ def load_attacked_model(args, learnable_affine: bool = False,
                            input_size=size, device=dev)
 
     model = build(passport_kwargs)
-    if args.loadpath:
+    if torch_file:
+        load_torch_checkpoint(args.loadpath, model)
+    elif args.loadpath:
         load_state(args.loadpath, TrainState.create(model, args.lr),
                    restore_opt=False)
 

@@ -8,8 +8,9 @@ ones derived from random validation images and watch accuracy collapse.
 Counterpart of the repository's ``passport_attack_1.py``: the same flags and
 CSV (``logs/passport_attack_1/...``). The candidate images are the first
 four validation batches; the pretrained model that derives the fake
-passports is a port checkpoint (``--pretrained-path``) or, without one, a
-normal model with random weights.
+passports is a port checkpoint or a reference or torchvision ``.pth``/``.pt``
+(``--pretrained-path``) or, without one, a normal model with random
+weights.
 """
 
 import numpy as np
@@ -29,7 +30,9 @@ def build_parser():
     p = base_parser("fake attack 1: random passport")
     p.add_argument("--attack-rep", default=1, type=int)
     p.add_argument("--pretrained-path",
-                   help="normal-model ckpt used to derive fake passports")
+                   help="normal-model ckpt used to derive fake passports "
+                        "(a port checkpoint, or a reference or torchvision "
+                        ".pth/.pt)")
     return p
 
 
@@ -37,15 +40,14 @@ def main(argv=None, device="cuda", **overrides):
     """Run the attack on ``device``; ``overrides`` set arguments no flag sets
     (``synthetic_train``, ``synthetic_test``). Returns the history rows."""
     from deepipr_tpu_torch.attacks import random_passport_attack
+    from deepipr_tpu_torch.interop.torchvision_import import (
+        load_torch_pretrained,
+    )
     from deepipr_tpu_torch.models.registry import build_model
     from deepipr_tpu_torch.train.state import TrainState
     from deepipr_tpu_torch.utils.checkpoint import load_state
 
     args = parse(build_parser(), argv, overrides)
-    if (args.pretrained_path or "").endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"--pretrained-path {args.pretrained_path}: reference .pth/.pt "
-            "files are not ported yet (ROADMAP queue 1, item 2: interop)")
     model, _, _, private, size = load_attacked_model(args, device=device)
     _, valloader = make_loaders(args)
 
@@ -53,7 +55,9 @@ def main(argv=None, device="cuda", **overrides):
     pretrained = build_model(arch, nclass_for(args.dataset), args.norm_type,
                              imagenet=args.dataset == "imagenet1000",
                              input_size=size, seed=2, device=device)
-    if args.pretrained_path:
+    if (args.pretrained_path or "").endswith((".pth", ".pt")):
+        load_torch_pretrained(args.pretrained_path, pretrained, arch)
+    elif args.pretrained_path:
         load_state(args.pretrained_path, TrainState.create(pretrained, 0.0),
                    restore_opt=False)
 

@@ -5,9 +5,12 @@
 Counterpart of the repository's ``train_v1.py``: the same flags with the same
 defaults and choices (the reference train_v1.py flags plus --dataset
 synthetic, --data-root, --seed, --logdir and the rest). It runs on the CUDA
-card. Flags of paths the port has not reached raise NotImplementedError
-naming their ROADMAP item: --transfer-learning, --multihost, --download, a
-.pth/.pt --pretrained-path, and the Caltech and ImageNet datasets.
+card. ``--transfer-learning`` fine-tunes the --pretrained-path checkpoint
+on --tl-dataset and records signature survival (train/transfer.py);
+--pretrained-path takes a port checkpoint or a reference or torchvision
+.pth/.pt. Flags of paths the port has not reached raise
+NotImplementedError naming their ROADMAP item: --multihost, --download,
+and the Caltech and ImageNet datasets.
 """
 
 import argparse
@@ -46,7 +49,8 @@ def build_parser():
 
     # paths
     p.add_argument("--pretrained-path",
-                   help="a checkpoint of the port (last.ckpt or best.ckpt)")
+                   help="a checkpoint of the port (last.ckpt or best.ckpt), "
+                        "or a reference or torchvision .pth/.pt")
     p.add_argument("--lr-config", default="lr_configs/default.json")
     p.add_argument("--passport-config",
                    default="passport_configs/alexnet_passport.json")
@@ -108,7 +112,9 @@ def build_parser():
 
     # transfer learning
     p.add_argument("--transfer-learning", action="store_true", default=False,
-                   help="not ported yet")
+                   help="fine-tune the --pretrained-path checkpoint on "
+                        "--tl-dataset and record signature survival per "
+                        "epoch (logdir/tl_1/history.csv)")
     p.add_argument("--tl-dataset", default="cifar100",
                    choices=["cifar10", "cifar100", "caltech-101",
                             "caltech-256", "imagenet1000", "synthetic"])
@@ -117,13 +123,18 @@ def build_parser():
 
 
 def run(args, device="cuda"):
-    """Train, or evaluate with --eval, as ``args`` (a dict of the parser's
-    values) say; returns the experiment."""
+    """Train, evaluate with --eval, or run transfer learning with
+    --transfer-learning, as ``args`` (a dict of the parser's values) say;
+    returns the experiment."""
     from deepipr_tpu_torch.train.experiment import ClassificationExperiment
 
     exp = ClassificationExperiment(args, device=device)
     if args["eval"]:
         print(exp.evaluate_only())
+    elif exp.is_tl:
+        from deepipr_tpu_torch.train.transfer import transfer_learning
+
+        transfer_learning(exp)
     else:
         exp.training()
     print("Training done at", exp.logdir)

@@ -193,12 +193,11 @@ class CyclingIterator:
 
 def prepare_dataset(args: Dict) -> Tuple[DataLoader, DataLoader]:
     """(train_loader, test_loader) per the reference's prepare_dataset, for
-    'synthetic', 'cifar10' and 'cifar100'."""
-    if args.get("transfer_learning"):
-        raise NotImplementedError(
-            "transfer learning is not ported yet (ROADMAP queue 1, item 1: "
-            "train/transfer.py)")
-    ds = args["dataset"]
+    'synthetic', 'cifar10' and 'cifar100'. With ``transfer_learning`` set
+    the set is ``tl_dataset`` and the train transform drops the random crop
+    (flip and normalization only, dataset.py:282-284)."""
+    is_tl = bool(args.get("transfer_learning"))
+    ds = args["tl_dataset"] if is_tl else args["dataset"]
     bs = args["batch_size"]
     if ds == "synthetic":
         tx, ty, vx, vy = synthetic_dataset(
@@ -216,8 +215,8 @@ def prepare_dataset(args: Dict) -> Tuple[DataLoader, DataLoader]:
 
     raw = bool(args.get("device_augment"))
     train_loader = DataLoader(tx, ty, bs, shuffle=True, train_augment=not raw,
-                              drop_last=True, seed=args.get("seed", 0),
-                              raw=raw)
+                              random_crop=not is_tl, drop_last=True,
+                              seed=args.get("seed", 0), raw=raw)
     test_loader = DataLoader(vx, vy, bs * 2)
     return train_loader, test_loader
 

@@ -1,4 +1,4 @@
-"""Load a JAX variable tree of ``deepipr_tpu`` into a port model.
+"""Convert between a JAX variable tree of ``deepipr_tpu`` and a port model.
 
 The tree is the JAX model's variables as nested dicts of numpy arrays, i.e.
 ``jax.tree.map(np.asarray, state.model_variables())``, with the collections
@@ -30,6 +30,8 @@ package's ``_FLATTENED_LINEAR_SHAPES``, interop/torch_import.py:32-44).
 ResNet's ``linear`` follows the global average pool and needs nothing.
 
 Every entry must match on both sides; anything unmatched raises.
+``export_jax_variables`` is the inverse: the port model's state dict as
+that tree, so a port checkpoint loads into the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +57,13 @@ def _hwc_rows_to_chw_columns(kernel: np.ndarray, chw) -> np.ndarray:
     c, h, w = chw
     return kernel.reshape(h, w, c, -1).transpose(3, 2, 0, 1).reshape(
         kernel.shape[1], -1)
+
+
+def _chw_columns_to_hwc_rows(weight: np.ndarray, chw) -> np.ndarray:
+    """The inverse of ``_hwc_rows_to_chw_columns``."""
+    c, h, w = chw
+    return weight.reshape(-1, c, h, w).transpose(2, 3, 1, 0).reshape(
+        h * w * c, -1)
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -125,3 +134,44 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
                              f"JAX variables {value.shape}")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in entries.items()},
                           strict=True)
+
+
+def _jax_entry(name: str, v: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """(collection, module path..., leaf) and the value in JAX's layout of
+    one port state-dict entry: the inverse of ``_port_entry``."""
+    *mods, leaf = name.split(".")
+    mods = tuple(mods)
+    if leaf in ("key", "skey"):
+        return ("passport", *mods, leaf), v.transpose(0, 2, 3, 1)
+    if leaf == "b":
+        return ("signature", *mods, "b"), v
+    if leaf in ("running_mean", "running_var"):
+        return ("batch_stats", *mods, leaf[len("running_"):]), v
+    if leaf == "weight" and v.ndim == 4:
+        return ("params", *mods, "kernel"), v.transpose(2, 3, 1, 0)
+    if leaf == "weight" and v.ndim == 2:
+        chw = FLATTENED_LINEAR_SHAPES.get((".".join(mods), v.shape[1]))
+        if chw is not None:
+            return ("params", *mods, "kernel"), _chw_columns_to_hwc_rows(v,
+                                                                         chw)
+        return ("params", *mods, "kernel"), v.T
+    if leaf == "weight" and mods and mods[-1] in ("bn", "bn_private"):
+        return ("params", *mods, "scale"), v
+    if leaf in ("scale", "bias"):
+        return ("params", *mods, leaf), v
+    raise ValueError(f"unmapped port entry {name}")
+
+
+@torch.no_grad()
+def export_jax_variables(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The model's parameters, BN statistics, passports and signatures as
+    the JAX variable tree (nested dicts of f32 numpy arrays in JAX's
+    layout), the inverse of ``load_jax_variables``."""
+    tree: Dict[str, Dict] = {}
+    for name, t in model.state_dict().items():
+        path, value = _jax_entry(name, t.detach().cpu().float().numpy())
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.array(value, np.float32, order="C")
+    return tree

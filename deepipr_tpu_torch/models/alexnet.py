@@ -41,6 +41,7 @@ from deepipr_tpu_torch.models.layers import (
     conv_out_hw,
     init_weights,
     make_block,
+    run_unit,
 )
 from deepipr_tpu_torch.ops.pooling import adaptive_avg_pool2d, max_pool2d
 
@@ -86,6 +87,9 @@ class AlexNet(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_classes = num_classes
+        self.in_channels = in_channels
+        self.norm_type = norm_type
+        self.input_size = input_size
         self.passport_kwargs = passport_kwargs
         self.private = private
         self.dtype = dtype
@@ -134,14 +138,15 @@ class AlexNet(nn.Module):
 
     def forward(self, x, ind: int = 0, force_passport: bool = False,
                 start_at: Optional[str] = None, tap_at: Optional[str] = None,
-                dropout_masks: Optional[Sequence[torch.Tensor]] = None
-                ) -> ModelOutput:
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                remat: bool = False) -> ModelOutput:
         """x: NCHW images, or the ``start_at`` block's input (the split dual
         forward, train/steps.py). ``tap_at``: return the named block's
         input, after the pool before it, as ``tap``, with its autograd
         history. ``dropout_masks``: boolean keep masks of
         ``dropout_shapes(N)``, required in train mode by the ImageNet head
-        and ignored in eval mode."""
+        and ignored in eval mode. ``remat``: each block's activations are
+        recomputed in the backward (layers.run_unit)."""
         if start_at is not None and start_at not in self.unit_names:
             raise ValueError(f"unknown start_at unit {start_at!r}")
         aux: Dict[str, Dict[str, Any]] = {}
@@ -153,7 +158,8 @@ class AlexNet(nn.Module):
                 continue
             if tap_at == name:
                 tap = x
-            x, unit_aux = getattr(self, name)(x, ind, force_passport)
+            x, unit_aux = run_unit(getattr(self, name), x, ind,
+                                   force_passport, remat)
             if unit_aux is not None:
                 aux[name] = unit_aux
             if name.removeprefix("features_") in POOL_AFTER:

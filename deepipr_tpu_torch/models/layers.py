@@ -23,15 +23,22 @@ models/layers/conv2d.py, passportconv2d.py, passportconv2d_private.py).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepipr_tpu_torch.ops.conv import Conv2D
-from deepipr_tpu_torch.ops.norms import BatchNorm, apply_norm, make_norm
+from deepipr_tpu_torch.ops.norms import (
+    BatchNorm,
+    apply_norm,
+    make_norm,
+    running_stats_frozen,
+)
 from deepipr_tpu_torch.ops.passport_epilogue import passport_epilogue
 from deepipr_tpu_torch.passport.codec import encode_signature
 from deepipr_tpu_torch.passport.derive import (
@@ -195,6 +202,25 @@ class ModelOutput(NamedTuple):
     logits: torch.Tensor
     aux: Dict[str, Dict[str, Any]]
     tap: Optional[torch.Tensor]
+
+
+def _recompute_contexts():
+    """checkpoint's (forward, recomputation) contexts: the recomputation
+    leaves the BN running statistics alone (ops/norms.py)."""
+    return contextlib.nullcontext(), running_stats_frozen()
+
+
+def run_unit(unit: nn.Module, x, ind: int, force_passport: bool,
+             remat: bool):
+    """``unit(x, ind, force_passport)``; with ``remat`` under autograd, the
+    unit keeps no activations and the backward recomputes its forward
+    (``remat="full"``, train/steps.py). A unit draws no random numbers (the
+    dropout masks are the head's arguments), so no RNG state is kept."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(unit, x, ind, force_passport, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=_recompute_contexts)
+    return unit(x, ind, force_passport)
 
 
 def conv_out_hw(hw: Tuple[int, int], k: int, s: int,

@@ -32,6 +32,7 @@ from deepipr_tpu_torch.models.layers import (
     conv_out_hw,
     init_weights,
     make_block,
+    run_unit,
 )
 from deepipr_tpu_torch.ops.pooling import global_avg_pool, max_pool2d
 
@@ -93,8 +94,11 @@ class ResNet(nn.Module):
                  input_size: int = 32, seed: int = 0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.block_cls = block_cls
         self.num_blocks = tuple(num_blocks)
         self.num_classes = num_classes
+        self.norm_type = norm_type
+        self.input_size = input_size
         self.passport_kwargs = passport_kwargs
         self.private = private
         self.dtype = dtype
@@ -136,11 +140,14 @@ class ResNet(nn.Module):
 
     def forward(self, x, ind: int = 0, force_passport: bool = False,
                 start_at: Optional[str] = None,
-                tap_at: Optional[str] = None) -> ModelOutput:
+                tap_at: Optional[str] = None,
+                remat: bool = False) -> ModelOutput:
         """x: NCHW images, or the ``start_at`` unit's input (the split dual
         forward, train/steps.py). ``tap_at``: return the named unit's input
         as ``tap``, with its autograd history, so a loss on the branch that
-        starts there differentiates the prefix through it."""
+        starts there differentiates the prefix through it. ``remat``: each
+        unit's activations are recomputed in the backward
+        (layers.run_unit)."""
         if start_at is not None and start_at not in self.unit_names:
             raise ValueError(f"unknown start_at unit {start_at!r}")
         aux: Dict[str, Dict[str, Any]] = {}
@@ -152,7 +159,8 @@ class ResNet(nn.Module):
                 continue
             if tap_at == name:
                 tap = x
-            x, unit_aux = getattr(self, name)(x, ind, force_passport)
+            x, unit_aux = run_unit(getattr(self, name), x, ind,
+                                   force_passport, remat)
             if name == "convbnrelu_1":
                 if unit_aux is not None:
                     aux[name] = unit_aux

@@ -15,6 +15,11 @@ Train-mode BN holds to the JAX package's (flax's) conventions:
 - W2: the running-stat EMA is ``running = 0.9*running + 0.1*batch``
   (flax momentum 0.9, torch's momentum 0.1). Epsilon is 1e-5.
 
+Under ``remat="full"`` (train/steps.py) the backward recomputes each
+block's forward; ``running_stats_frozen()`` is entered for that
+recomputation, so the running statistics take the EMA once a forward, as
+the JAX package's functional statistics do.
+
 Under bf16 (flax's ``BatchNorm(dtype=bf16)`` and ``GroupNorm(dtype=bf16)``)
 a norm takes the block's bf16 activations and returns bf16: statistics,
 running buffers and affine parameters stay f32, and the normalize runs in
@@ -23,7 +28,9 @@ f32 and is rounded once.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +40,22 @@ EPS = 1e-5
 # running = BN_MOMENTUM*running + (1-BN_MOMENTUM)*batch; the split dual
 # forward re-applies this EMA for prefix units (train/steps.py)
 BN_MOMENTUM = 0.9
+
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen() -> Iterator[None]:
+    """Train-mode BN in this thread normalizes with the batch statistics
+    and leaves its running statistics as they are: the context of a
+    checkpointed block's recomputation, whose forward already took the
+    EMA."""
+    before = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = before
 
 
 class BatchNorm(nn.Module):
@@ -75,6 +98,9 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
+        if getattr(_frozen, "on", False):
+            return F.batch_norm(x, None, None, weight, bias, True, 0.0,
+                                self.eps)
         # the running buffers stay out of F.batch_norm, which would store the
         # unbiased variance (W1); the statistics are taken in f32
         with torch.no_grad():

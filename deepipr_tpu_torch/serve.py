@@ -30,17 +30,26 @@ from deepipr_tpu_torch.utils.mode import eval_mode
 class Predictor:
     """Batched inference on a built model (which holds its weights).
 
-    ``folded=True`` (BN and affines folded into the conv weights,
-    interop/fold.py in the JAX package) is a later slice.
+    ``folded=True`` folds BN and the affines of branch ``ind`` into the
+    conv weights once, here (interop/fold.py; ``input_shape`` as there),
+    and serves the folded model's one branch: no BN and no K2 at run time.
+    In f32 that is the faster model. In bf16 it is slower at large batches
+    (on the H100, batch 1024: 17-24 % fewer img/s on ResNet18Private, 8-27 %
+    on AlexNet; PERF.md section 5): each conv adds its bias in f32, as norm
+    type 'none' does in the JAX package, and the add, the ReLU and the cast
+    back to bf16 run as separate passes.
     """
 
     def __init__(self, model, ind: int = 0, force_passport: bool = False,
-                 folded: bool = False, device: DeviceLike = "cuda"):
-        if folded:
-            raise NotImplementedError(
-                "folded inference is not ported yet (ROADMAP queue 1, item 2)")
+                 folded: bool = False, input_shape=None,
+                 device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         require_on_device(model, self.device)
+        if folded:
+            from deepipr_tpu_torch.interop.fold import fold_for_inference
+
+            model = fold_for_inference(model, input_shape, ind=ind)
+            ind, force_passport = 0, False  # the folded model has one branch
         self.model = model
         self.ind = ind
         self.force_passport = force_passport

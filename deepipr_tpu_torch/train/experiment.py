@@ -17,11 +17,14 @@ Training paths: the host per-step path (batches augmented on the host, one
 synchronous step each), ``--device-augment`` (raw uint8 batches, kernel K1
 in every step) and ``--epoch-scan`` (the set resident on the device, K1 in
 every step, one host read per epoch). ``--bf16`` makes the model's compute
-dtype bf16 and K1 write bf16.
+dtype bf16 and K1 write bf16. ``--transfer-learning`` loads the attacked
+checkpoint (``--pretrained-path``) and keeps the host path without the
+random crop; ``train/transfer.py`` runs it. ``--pretrained-path`` takes a
+port checkpoint or a reference or torchvision ``.pth``/``.pt``
+(interop/torchvision_import.py).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-transfer learning, ``.pth``/``.pt`` pretrained files, the Caltech and
-ImageNet datasets, ``--multihost`` and ``--download``.
+the Caltech and ImageNet datasets, ``--multihost`` and ``--download``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from deepipr_tpu_torch.data.datasets import (
     prepare_dataset,
     prepare_wm,
 )
+from deepipr_tpu_torch.interop.torchvision_import import load_torch_pretrained
 from deepipr_tpu_torch.models.registry import NUM_CLASSES, build_model
 from deepipr_tpu_torch.serve import passports
 from deepipr_tpu_torch.train.epoch import device_resident, make_epoch_train_fn
@@ -104,10 +108,8 @@ def derive_scheme(args: Dict) -> int:
 
 
 def _unported(args: Dict) -> None:
-    """Raise for the flags and datasets the port does not run yet."""
+    """Raise for the flags the port does not run yet."""
     reasons = {
-        "transfer_learning": "transfer learning is not ported yet (ROADMAP "
-                             "queue 1, item 1: train/transfer.py)",
         "multihost": "--multihost is not ported yet (ROADMAP queue 1, item "
                      "1: DDP and mesh training, multihost)",
         "download": "--download is refused: the port reads datasets from "
@@ -116,12 +118,6 @@ def _unported(args: Dict) -> None:
     for flag, reason in reasons.items():
         if args.get(flag):
             raise NotImplementedError(reason)
-    path = args.get("pretrained_path") or ""
-    if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"--pretrained-path {path}: reference and torchvision .pth/.pt "
-            "files are not ported yet (ROADMAP queue 1, item 2: interop); "
-            "pass a checkpoint of the port")
 
 
 class Experiment:
@@ -145,6 +141,8 @@ class Experiment:
                                                 False)
         self.train_backdoor = args.get("train_backdoor", False)
         self.is_tl = args.get("transfer_learning", False)
+        self.tl_dataset = args.get("tl_dataset", "cifar100")
+        self.tl_scheme = args.get("tl_scheme", "rtal")
         self.pretrained_path = args.get("pretrained_path")
         self.seed = args.get("seed", 0)
 
@@ -216,6 +214,14 @@ class ClassificationExperiment(Experiment):
         self.dtype = torch.bfloat16 if self.args.get("bf16") else None
         self.out_dtype = self.dtype or torch.float32
         self.pad = int((4 / 32) * self.imgcrop)
+        if self.is_tl:
+            # TL drops the random crop: it keeps the host per-step path
+            # (JAX experiment.py:189-193, 220-224)
+            for flag in ("device_augment", "epoch_scan"):
+                if self.args.get(flag):
+                    print(f"WARNING: --{flag.replace('_', '-')} ignored for "
+                          "transfer learning; using the host path")
+                    self.args[flag] = False
         self.device_augment = bool(self.args.get("device_augment"))
         self.epoch_scan = bool(self.args.get("epoch_scan"))
 
@@ -266,12 +272,12 @@ class ClassificationExperiment(Experiment):
         self.state = TrainState.create(self.model, schedule, momentum=0.9,
                                        weight_decay=1e-4)
 
-        if self.pretrained_path and self.scheme == 0:
-            # resume or fine-tune a normal model (reference finetune_load,
-            # base.py:85-108)
-            self.state = load_state(self.pretrained_path, self.state,
-                                    restore_opt=False)
-        if use_passport and self.key_type != "random":
+        if self.pretrained_path and (self.scheme == 0 or self.is_tl):
+            # scheme 0: resume or fine-tune a normal model; TL: the
+            # checkpoint under the transfer attack (reference
+            # finetune_load, base.py:85-108)
+            self._load_pretrained_state(self.pretrained_path, self.state)
+        if use_passport and self.key_type != "random" and not self.is_tl:
             self._setup_keys()
         if self.args.get("resume"):
             # restores optimizer state, BN statistics, passports,
@@ -312,6 +318,15 @@ class ClassificationExperiment(Experiment):
             self.signature_fn = make_signature_fn(
                 self.model, shape, private=self.private, device=self.device)
 
+    def _load_pretrained_state(self, path: str, state: TrainState) -> None:
+        """Load ``--pretrained-path`` into ``state``'s model, keeping its
+        optimizer: a port checkpoint, or a reference or torchvision
+        ``.pth``/``.pt`` (layout sniffed; JAX experiment.py:375-392)."""
+        if path.endswith((".pth", ".pt")):
+            load_torch_pretrained(path, state.model, self.arch)
+        else:
+            load_state(path, state, restore_opt=False)
+
     def _setup_keys(self):
         """Reference setup_keys (classification.py:130-140): sample
         candidate images, run them through a pretrained NORMAL model,
@@ -320,8 +335,8 @@ class ClassificationExperiment(Experiment):
                                  input_size=self.imgcrop, seed=self.seed + 2,
                                  device=self.device)
         if self.pretrained_path:
-            load_state(self.pretrained_path, TrainState.create(pretrained, 0.0),
-                       restore_opt=False)
+            self._load_pretrained_state(self.pretrained_path,
+                                        TrainState.create(pretrained, 0.0))
         else:
             print("WARNING: no --pretrained-path; deriving passports from a "
                   "randomly initialized model (the reference would download "
@@ -404,9 +419,16 @@ class ClassificationExperiment(Experiment):
         out["images_per_sec"] = images / max(out["time"], 1e-9)
         return out
 
-    def _dual_eval(self, data) -> Dict:
+    def _dual_eval(self, data, model=None) -> Dict:
         """Both branches for private schemes (reference TesterPrivate.test,
-        trainer_private.py:218-251), the public one otherwise."""
+        trainer_private.py:218-251), the public one otherwise; of
+        ``model`` (another model of the same build, e.g. transfer
+        learning's copied-back one) in place of the experiment's own."""
+        if model is not None:
+            if self.private:
+                return run_dual_eval(
+                    make_dual_eval_step(model, device=self.device), data)
+            return run_eval(make_eval_step(model, device=self.device), data)
         if self.private:
             return run_dual_eval(self.dual_eval_step, data)
         return run_eval(self.eval_steps[0], data)

@@ -157,11 +157,17 @@ def make_train_step(model, private: bool, split_branches: bool = True,
         r2 = m*r1 + (1-m)*s = r1 + m*(r1 - r0)
     Gradients are unchanged: CE0(f(x)) + CE1(g(f(x))) differentiates the
     prefix f once through both terms either way.
+
+    remat="full": every unit of the model (ResNet's stem and blocks,
+    AlexNet's conv blocks) keeps no activations, and the backward
+    recomputes its forward (``torch.utils.checkpoint``), in each forward of
+    the step, the split ones included. The recomputation normalizes with
+    the same batch statistics and takes no EMA step (ops/norms.py), and the
+    dropout masks are the step's arguments, so updates and running
+    statistics are those of remat="none".
     """
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP queue 1, item 1: "
-            "remat='full'); only 'none' runs")
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
     dev = resolve_device(device)
     require_on_device(model, dev)
     fork = branch_point(model) if private and split_branches else None
@@ -205,6 +211,8 @@ def make_train_step(model, private: bool, split_branches: bool = True,
 
         shapes = dropout_shapes(x.shape[0])
         fwd = {"dropout_masks": dropout(state.step, shapes)} if shapes else {}
+        if remat == "full":
+            fwd["remat"] = True
 
         if fork is not None:
             fork_name, _ = fork

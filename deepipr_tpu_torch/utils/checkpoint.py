@@ -100,6 +100,38 @@ class AsyncCheckpointer:
             raise e
 
 
+@torch.no_grad()
+def load_model_entries(model: torch.nn.Module,
+                       entries: Dict[str, torch.Tensor], source: str,
+                       caller: str) -> None:
+    """Fill ``model`` (in place, on its device) from state-dict
+    ``entries``. An unmatched passport or signature entry raises, and so do
+    an entry the model has and ``entries`` lack and a shape mismatch;
+    entries the model lacks are dropped with a loud warning, as the JAX
+    package does. ``source`` names the entries in an error, ``caller`` the
+    loader in the warning."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(entries))
+    dropped = sorted(set(entries) - set(own))
+    strict = [k for k in missing + dropped
+              if k.rsplit(".", 1)[-1] in _STRICT_LEAVES]
+    if strict:
+        raise ValueError(f"{source}: passport or signature entries do not "
+                         f"match the model: {strict}")
+    if missing:
+        raise ValueError(f"{source} lacks model entries {missing}")
+    shapes = [f"{k} {tuple(entries[k].shape)} vs {tuple(v.shape)}"
+              for k, v in own.items() if entries[k].shape != v.shape]
+    if shapes:
+        raise ValueError(f"{source}: shapes do not match the model: "
+                         f"{shapes}")
+    if dropped:
+        print(f"WARNING: {caller} dropped {len(dropped)} checkpoint "
+              f"entr{'y' if len(dropped) == 1 else 'ies'} not in the "
+              f"template: {dropped[:6]}{' ...' if len(dropped) > 6 else ''}")
+    model.load_state_dict({k: entries[k] for k in own}, strict=True)
+
+
 def load_state(path: str, template: TrainState,
                restore_opt: bool = True) -> TrainState:
     """Restore a checkpoint into ``template`` (in place, on the template's
@@ -107,30 +139,12 @@ def load_state(path: str, template: TrainState,
 
     ``restore_opt=False`` keeps the template's optimizer state and step
     counter: the "load pretrained weights" semantics of ``--pretrained-path``
-    and the attack tools. The model entries must match the template's; an
-    unmatched passport or signature entry raises, and so does an entry the
-    template has and the checkpoint lacks. Entries of the checkpoint that
-    the template lacks are dropped with a loud warning, as the JAX package
-    does.
+    and the attack tools. The model entries must match the template's
+    (``load_model_entries``).
     """
     data = torch.load(path, map_location="cpu", weights_only=True)
-    entries = data["model"]
-    own = template.model.state_dict()
-    missing = sorted(set(own) - set(entries))
-    dropped = sorted(set(entries) - set(own))
-    strict = [k for k in missing + dropped
-              if k.rsplit(".", 1)[-1] in _STRICT_LEAVES]
-    if strict:
-        raise ValueError(f"checkpoint {path}: passport or signature entries "
-                         f"do not match the model: {strict}")
-    if missing:
-        raise ValueError(f"checkpoint {path} lacks model entries {missing}")
-    if dropped:
-        print(f"WARNING: load_state dropped {len(dropped)} checkpoint "
-              f"entr{'y' if len(dropped) == 1 else 'ies'} not in the "
-              f"template: {dropped[:6]}{' ...' if len(dropped) > 6 else ''}")
-        entries = {k: v for k, v in entries.items() if k in own}
-    template.model.load_state_dict(entries, strict=True)
+    load_model_entries(template.model, data["model"], f"checkpoint {path}",
+                       "load_state")
     if restore_opt:
         template.optimizer.load_state_dict(data["optimizer"])
         template.step = int(data["step"])

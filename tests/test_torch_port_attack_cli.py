@@ -1,7 +1,8 @@
 """The port's attack CLIs on the CPU: each of the six runs in-process on a
 one-epoch checkpoint of the port and writes the CSV the repository's root
 script writes (file name and columns, taken from the same root script run on
-the JAX package), parses the same flags, and raises for what is not ported.
+the JAX package), parses the same flags, attacks a reference-layout .pth as
+it attacks the port's checkpoint, and raises for what is not ported.
 """
 
 import argparse
@@ -26,6 +27,7 @@ from deepipr_tpu_torch.cli import (
     train_v1,
     train_v23,
 )
+from deepipr_tpu_torch.interop.torch_export import save_torch_checkpoint
 from deepipr_tpu_torch.models.registry import build_model
 from deepipr_tpu_torch.train.state import TrainState
 from deepipr_tpu_torch.utils.checkpoint import save_state
@@ -172,10 +174,18 @@ def test_parser_matches_the_root_script(name, monkeypatch):
     assert got.description == want.description
 
 
-def test_unported_inputs_raise(checkpoints, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        pruning_attack.main(_attack_argv(2, str(tmp_path / "ref.pth")),
-                            device="cpu", **SIZES)
+def test_unported_inputs_raise(checkpoints, tmp_path, monkeypatch):
+    # a reference-layout .pth exported by the port attacks as its checkpoint
+    args = argparse.Namespace(**vars(pruning_attack.build_parser().parse_args(
+        _attack_argv(2, checkpoints[2]))))
+    model, *_ = load_attacked_model(args, device="cpu")
+    pth = str(tmp_path / "ref.pth")
+    save_torch_checkpoint(pth, model)
+    with monkeypatch.context() as m:
+        m.chdir(tmp_path)  # the CSVs
+        rows = pruning_attack.main(_attack_argv(2, pth), device="cpu", **SIZES)
+        assert rows == pruning_attack.main(_attack_argv(2, checkpoints[2]),
+                                           device="cpu", **SIZES)
     # the default --arch is alexnet, which a resnet9 checkpoint does not fit
     with pytest.raises(ValueError, match="features_"):
         pruning_attack.main(

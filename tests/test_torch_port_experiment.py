@@ -307,12 +307,10 @@ def test_nan_guard_halts_with_actionable_message(tmp_path, monkeypatch):
         exp.training()
 
 
-@pytest.mark.parametrize("flag", ["transfer_learning", "multihost",
-                                  "download", "pth", "imagenet1000",
+@pytest.mark.parametrize("flag", ["multihost", "download", "imagenet1000",
                                   "caltech-101"])
 def test_unported_paths_raise_naming_their_item(tmp_path, flag):
-    over = {"pth": {"pretrained_path": "weights.pth"},
-            "imagenet1000": {"dataset": "imagenet1000"},
+    over = {"imagenet1000": {"dataset": "imagenet1000"},
             "caltech-101": {"dataset": "caltech-101"}}.get(flag, {flag: True})
     with pytest.raises(NotImplementedError, match="ROADMAP|local files"):
         experiment.ClassificationExperiment(base_args(tmp_path, **over),

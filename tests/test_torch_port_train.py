@@ -400,12 +400,6 @@ def test_draws_depend_on_seed_and_step_alone():
     assert any(not torch.equal(x, y) for x, y in zip(a(3, 64), other(3, 64)))
 
 
-def test_unported_remat_raises():
-    model = build_model("resnet9", 10, device="cpu", input_size=SIDE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, False, remat="full", device="cpu")
-
-
 def test_v2_training_embeds_the_signature():
     """tests/test_train.py:75-96 for the port: 40 steps at lr 0.05 on a toy
     batch, then every passport layer's signature reads back exactly."""
