@@ -13,9 +13,10 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
 3. Kernels: each kernel's f32 and bf16 forms against their plain PyTorch
    versions on the card, at the main paths' shapes, the JAX package's test
    shapes and ragged ones (its vector and scalar paths), K2 and its
-   gradient K2-bwd twice for bit-identical results; then timed beside the
-   plain version, a library yardstick where one exists, the memory bound,
-   the event timer's own floor and the CUPTI duration.
+   gradient K2-bwd twice for bit-identical results, ReLU on and off; then
+   timed beside the plain version, a library yardstick where one exists,
+   the memory bound, the event timer's own floor and the CUPTI duration,
+   ResNet-50's shapes with the ReLU as its positions have it.
 4. Serving, in f32 and then in bf16: ResNet18Private at CIFAR-10 width with
    passport_configs/resnet18_passport.json, random weights, passports and BN
    statistics from ``--seed``. The serving path runs through the public
@@ -87,6 +88,21 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
     vs CPU at 224 px; an ImageNet ResNet18Private private forward at 224
     px (K2 at (64,512,7,7), held and timed in phase 3), batch 64, card vs
     CPU in f32 and bf16.
+15. ResNet-50 (``resnet50_*``, passport_configs/resnet50_passport.json:
+    all ten layer4 positions, K2 at (N,512,8,8), (N,512,4,4) and, without
+    the ReLU at convbn_3 and shortcut, (N,2048,4,4)): phase 4's serving
+    path on ResNet50Private V2 in f32 and bf16 with 10 K2 launches a
+    private forward, its throughput and profile; phase 6's training in f32
+    and bf16 with a two-step f32 parity whose bounds take the CPU step's
+    own spread; the entry point with ``--arch resnet50`` (scheme 0 for 1
+    epoch, V2 ``--epoch-scan --pallas-input`` for RESNET50_EPOCHS until the
+    signature reads back, best.ckpt verified in a fresh model); an
+    ambiguity and a forge step on that checkpoint card vs CPU (10 K2-bwd
+    launches a step, 4 without the mask); both branches folded against
+    the unfolded model; the checkpoint through a .pth round trip;
+    hand-built torchvision ResNet-34 and ResNet-50 at 224 px card vs CPU;
+    an ImageNet ResNet50Private private forward at 224 px (K2 at 14x14 and
+    7x7) in f32 and bf16.
 
 Each phase's wall time is printed on a line of its own.
 
@@ -131,12 +147,34 @@ CHECK_SHAPES = [MAIN_SHAPE, (1, 512, 4, 4), (1024, 512, 4, 4),
                 (256, 384, 8, 8), (256, 256, 8, 8), (1, 384, 8, 8),
                 (1, 256, 8, 8), (64, 384, 13, 13), (64, 256, 13, 13),
                 # ImageNet ResNet18's layer4 at 224 px (interop_path)
-                (64, 512, 7, 7)]
+                (64, 512, 7, 7),
+                # ResNet50Private's layer4 (resnet50_passport.json): the
+                # 1x1 convbnrelu_1 of layer4_0 on layer3's 8x8 map, the
+                # 2048-channel convbn_3 and shortcut (ReLU off there) at the
+                # request batch, Predictor's 1024, detection's 1 and the V3
+                # trigger batch's 2; at 224 px 14x14 (H*W = 196, the vector
+                # path) and 7x7
+                (256, 512, 8, 8), (256, 2048, 4, 4), (1024, 2048, 4, 4),
+                (1024, 512, 8, 8), (1, 512, 8, 8), (1, 2048, 4, 4),
+                (2, 2048, 4, 4), (64, 512, 14, 14), (64, 2048, 7, 7),
+                # the attack steps' forward at the attack CLIs' batch 64
+                # (ResNet18Private, AlexNet, ResNet50Private), and ResNet-50
+                # bf16 serving's eval step on the SERVE_BF16_CPU_ROWS rows
+                # held against the CPU
+                (64, 512, 4, 4), (64, 384, 8, 8), (64, 256, 8, 8),
+                (64, 512, 8, 8), (64, 2048, 4, 4), (32, 512, 4, 4),
+                (32, 512, 8, 8), (32, 2048, 4, 4)]
 # K2 and K2-bwd timed at AlexNet's shapes besides the main ones
 ALEXNET_TIMED = [(256, 384, 8, 8), (256, 256, 8, 8), (64, 384, 13, 13)]
 ALEXNET_BWD_TIMED = [(64, 384, 8, 8), (64, 256, 8, 8)]
 # K2 at ImageNet ResNet18Private's layer4 (224 px, the interop phase's batch)
 IMAGENET_K2 = (64, 512, 7, 7)
+# K2 and K2-bwd timed at ResNet50Private's shapes, (shape, relu): the
+# 2048-channel positions (convbn_3, shortcut) run without the ReLU; CIFAR
+# at the request batch and, at 224 px, the ImageNet batch
+RESNET50_TIMED = [((256, 2048, 4, 4), False), ((256, 512, 8, 8), True),
+                  ((64, 512, 14, 14), True), ((64, 2048, 7, 7), False)]
+RESNET50_BWD_TIMED = [((64, 2048, 4, 4), False), ((64, 512, 8, 8), True)]
 # the card against the plain version of the same arithmetic: the GAP sums
 # in another order (tests/test_pallas.py's tolerance)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -158,7 +196,11 @@ BWD_SHAPES = [(64, 512, 4, 4), MAIN_SHAPE, (1024, 512, 4, 4), (1, 512, 4, 4),
               (8, 512, 7, 7), (3, 40, 5, 3),
               # AlexNet's features_4 and _5/_6 at the attack CLIs' batch and
               # the forge attack's batch 1
-              (64, 384, 8, 8), (64, 256, 8, 8), (1, 384, 8, 8)]
+              (64, 384, 8, 8), (64, 256, 8, 8), (1, 384, 8, 8),
+              # ResNet50Private's layer4 at the attack batch and the forge
+              # attack's batch 1
+              (64, 2048, 4, 4), (64, 512, 8, 8), (1, 2048, 4, 4),
+              (1, 512, 8, 8)]
 BWD_SUM_TOL = dict(rtol=1e-4, atol=1e-4)
 # K1 normalized against its plain version: tests/test_pallas_augment.py's
 # tolerance (1 ulp); the pixels before normalizing must agree bit for bit
@@ -230,6 +272,36 @@ RESNET_K2 = 5  # K2 launches of a ResNet18Private private forward
 # folded against unfolded logits on the card: f32 at tests/test_fold.py's
 # tolerance; bf16 norm-wise, as the serving path holds bf16 logits
 FOLD_TOL = dict(rtol=1e-4, atol=1e-4)
+# ResNet-50: passport_configs/resnet50_passport.json flags all of layer4
+# (10 positions, 4 of them without the ReLU), so a private forward
+# launches K2 10 times
+RESNET50_CONFIG = "passport_configs/resnet50_passport.json"
+RESNET50_K2 = 10
+RESNET50_LOGDIR = os.path.join("build", "chip_smoke_resnet50")
+RESNET50_CLI = ["--arch", "resnet50", "--dataset", "synthetic",
+                "--batch-size", str(TRAIN_BATCH), "--logdir", RESNET50_LOGDIR]
+RESNET50_V2 = ["--passport-config", RESNET50_CONFIG, "--key-type", "shuffle",
+               "--epoch-scan", "--pallas-input"]
+# V2 epochs until the last epoch's mean train_sign_acc reads 1.0 on the
+# card (the recipe's 200, cut for time): on the H100 the first epoch reads
+# 0.982, the next ones 1.0
+RESNET50_EPOCHS = 3
+CONFIGS = {"alexnet": ALEXNET_CONFIG, "resnet50": RESNET50_CONFIG}
+MODEL_NAMES = {"resnet18": "ResNet18Private", "resnet50": "ResNet50Private"}
+K2_PER_FORWARD = {"alexnet": ALEXNET_K2, "resnet18": RESNET_K2,
+                  "resnet50": RESNET50_K2}
+# rows of a bf16 serving batch held card vs CPU: bf16 convolutions are
+# slow on the CPU (ResNet-50's most), and eval-mode rows are independent
+SERVE_BF16_CPU_ROWS = {"resnet18": REQUEST_BATCH, "resnet50": 32}
+# train_parity's step count for each training phase, by dtype. ResNet-50:
+# one f32 step, its second being ill-conditioned (the sign loss of a random
+# 11,264-bit signature drives the first update, and the second amplifies
+# its rounding); no bf16 run, bf16 training being too slow on the CPU
+PARITY_STEPS = {"resnet18": {torch.float32: 2, BF16: 2},
+                "resnet50": {torch.float32: 1}}
+# the hand-built torchvision files each ResNet's interop phase loads
+TORCHVISION_ARCHS = {"resnet18": ("resnet18",),
+                     "resnet50": ("resnet34", "resnet50")}
 
 
 def log(*parts):
@@ -493,7 +565,7 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def time_epilogue(gen, timer: DeviceTimer, shape, smi: str,
-                  dtype=torch.float32) -> dict:
+                  dtype=torch.float32, relu: bool = True) -> dict:
     from deepipr_tpu_torch.ops.passport_epilogue import (
         passport_epilogue,
         passport_epilogue_reference,
@@ -501,31 +573,35 @@ def time_epilogue(gen, timer: DeviceTimer, shape, smi: str,
 
     y, key_out, skey_out, mean, var = args = epilogue_inputs(shape, gen,
                                                              dtype)
-    _, scale, bias = passport_epilogue_reference(*args)
+    _, scale, bias = passport_epilogue_reference(*args, relu=relu)
 
     def library():
         # the nearest single library call, with scale/bias precomputed
-        F.batch_norm(y, mean, var, scale, bias, False, 0.0, 1e-5).relu_()
+        out = F.batch_norm(y, mean, var, scale, bias, False, 0.0, 1e-5)
+        if relu:
+            out.relu_()
 
     n, c, h, w = shape
     # y read and out written in their dtype; the passport outputs, the
     # statistics and scale/bias in f32
     nbytes = (y.element_size() * 2 * n * c * h * w
               + 4 * (2 * c * h * w + 4 * c))
-    flops = 5 * n * c * h * w + 2 * c * h * w
+    flops = (5 if relu else 4) * n * c * h * w + 2 * c * h * w
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / F32_FLOPS_PER_S * 1e3}
     bound_by = max(bound, key=bound.get)
+    def kernel():
+        passport_epilogue(*args, relu=relu)
+
     copy = torch.empty_like(y)
-    memory_diagnostics(timer, lambda: passport_epilogue(*args),
-                       "passport_epilogue_kernel",
+    memory_diagnostics(timer, kernel, "passport_epilogue_kernel",
                        lambda: torch.mul(y, 1.0, out=copy), "MulFunctor",
-                       f"passport_epilogue {shape} {dtype}", smi)
+                       f"passport_epilogue {shape} {dtype} relu={relu}", smi)
     return {
-        "ms": timer.ms(lambda: passport_epilogue(*args)),
-        "profiled_ms": timer.profiled_ms(lambda: passport_epilogue(*args),
-                                         "passport_epilogue_kernel"),
-        "plain_ms": timer.ms(lambda: passport_epilogue_reference(*args)),
+        "ms": timer.ms(kernel),
+        "profiled_ms": timer.profiled_ms(kernel, "passport_epilogue_kernel"),
+        "plain_ms": timer.ms(lambda: passport_epilogue_reference(
+            *args, relu=relu)),
         "library_ms": timer.ms(library),
         "bound_ms": bound[bound_by],
         "bound_by": bound_by,
@@ -608,16 +684,17 @@ def check_backward(gen) -> float:
     return worst
 
 
-def time_backward(gen, timer: DeviceTimer, shape, smi: str) -> dict:
-    """K2-bwd beside its plain version and the yardstick: ATen's eval-mode
-    batch-norm backward on the same shapes (dx, dweight, dbias; no ReLU
-    mask, no passport planes)."""
+def time_backward(gen, timer: DeviceTimer, shape, smi: str,
+                  relu: bool = True) -> dict:
+    """K2-bwd (with or without the ReLU mask) beside its plain version and
+    the yardstick: ATen's eval-mode batch-norm backward on the same shapes
+    (dx, dweight, dbias; no ReLU mask, no passport planes)."""
     from deepipr_tpu_torch.ops.passport_epilogue import (
         passport_epilogue_backward,
         passport_epilogue_backward_reference,
     )
 
-    args, out = backward_inputs(shape, gen)
+    args, out = backward_inputs(shape, gen, relu)
     g, y, _, scale, mean, var, g_scale, g_bias = args
 
     def library():
@@ -637,18 +714,18 @@ def time_backward(gen, timer: DeviceTimer, shape, smi: str) -> dict:
     bound_by = max(bound, key=bound.get)
 
     def kernel():
-        passport_epilogue_backward(*args)
+        passport_epilogue_backward(*args, relu=relu)
 
     copy = torch.empty_like(y)
     memory_diagnostics(timer, kernel, "passport_epilogue_bwd_kernel",
                        lambda: torch.add(g, y, out=copy), "CUDAFunctor_add",
-                       f"passport_epilogue_backward {shape}", smi)
+                       f"passport_epilogue_backward {shape} relu={relu}", smi)
     return {
         "ms": timer.ms(kernel),
         "profiled_ms": timer.profiled_ms(kernel,
                                          "passport_epilogue_bwd_kernel"),
         "plain_ms": timer.ms(lambda: passport_epilogue_backward_reference(
-            g, y, out, scale, mean, var, g_scale, g_bias)),
+            g, y, out, scale, mean, var, g_scale, g_bias, relu=relu)),
         "library_ms": timer.ms(library),
         "bound_ms": bound[bound_by],
         "bound_by": bound_by,
@@ -772,8 +849,8 @@ def time_augment(timer: DeviceTimer, case, smi: str,
 def random_model(seed: int, dtype=None, arch: str = "resnet18",
                  private: bool = True, num_classes: int = 10,
                  size: int = 32):
-    """ResNet18Private (or ``arch`` with its passport config, V1 where
-    ``private`` is false) on the CPU in compute dtype ``dtype``: weights,
+    """ResNet18Private (or ``arch`` with its passport config, CONFIGS, V1
+    where ``private`` is false) on the CPU in compute dtype ``dtype``: weights,
     passports and BN running stats from ``seed``, each signature ``b`` set
     to the sign of its derived scale (the signature a trained model
     carries)."""
@@ -785,8 +862,7 @@ def random_model(seed: int, dtype=None, arch: str = "resnet18",
         load_passport_config,
     )
 
-    config = (ALEXNET_CONFIG if arch == "alexnet"
-              else "passport_configs/resnet18_passport.json")
+    config = CONFIGS.get(arch, RESNET_CONFIG)
     kw, plkeys = construct_passport_kwargs(load_passport_config(config),
                                            "bn", "random", 0.1)
     model = build_model(arch, num_classes, norm_type="bn", passport_kwargs=kw,
@@ -827,7 +903,7 @@ def request_batches(count: int, seed: int):
 
 def serve_path(gpu_model, cpu_model, batches, forged, launches,
                form: str = "passport_epilogue", private_model: bool = True,
-               per_forward: int = 5) -> dict:
+               per_forward: int = 5, cpu_rows: int = REQUEST_BATCH) -> dict:
     """The serving and verification path on the card, checked against the
     CPU. ``launches()`` reads the kernels' launch counts; ``form`` names the
     K2 form the model's dtype takes, ``per_forward`` its launches in a
@@ -835,7 +911,10 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
     (``private_model``), either branch's of a V1 model. A bf16 model's
     private logits are held to the CPU's norm-wise (BF16_LOGITS_NORM_TOL)
     and its forged per-layer detection rates within BF16_FORGED_TOL of the
-    CPU's; an f32 model's elementwise and exactly."""
+    CPU's; an f32 model's elementwise and exactly. The logits and eval
+    sums are compared on the first ``cpu_rows`` rows of the first batch
+    (eval-mode rows are independent): the logits the card served for that
+    batch, the sums from a card step on those rows."""
     bf16 = form.endswith("bf16")
     from deepipr_tpu_torch.serve import Predictor, verify_ownership
     from deepipr_tpu_torch.train.steps import (
@@ -847,11 +926,13 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
 
     public = Predictor(gpu_model, ind=0)
     private = Predictor(gpu_model, ind=1)
+    served = []  # each batch's private logits
     for batch in batches:
         before = launches()[form]
         logits0 = public.logits(batch["image"])
         between = launches()[form]
         logits1 = private.logits(batch["image"])
+        served.append(logits1)
         counted = (between - before, launches()[form] - between)
         if counted != (0 if private_model else per_forward, per_forward):
             raise AssertionError(f"{counted} epilogue launches in a public "
@@ -861,9 +942,10 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
             if logits.shape != (REQUEST_BATCH, 10) or \
                     not torch.isfinite(logits).all():
                 raise AssertionError("non-finite or misshapen logits")
+    compared = {k: v[:cpu_rows] for k, v in batches[0].items()}
     cpu_logits = Predictor(cpu_model, ind=1, device="cpu").logits(
-        batches[0]["image"])
-    gpu_logits = private.logits(batches[0]["image"]).cpu()
+        compared["image"])
+    gpu_logits = served[0][:cpu_rows].cpu()
     if bf16:
         err = ((gpu_logits - cpu_logits).norm() / cpu_logits.norm()).item()
         log(f"  bf16 private logits, card vs CPU: {err:.3g} of their norm")
@@ -874,17 +956,18 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
         torch.testing.assert_close(gpu_logits, cpu_logits, **LOGITS_TOL)
     log("Predictor: public and private branches answered "
         f"{len(batches)} batches of {REQUEST_BATCH}; private logits match "
-        f"the CPU run; {per_forward} {form} launches per passport forward")
+        f"the CPU run's on {cpu_rows} rows; {per_forward} {form} launches "
+        "per passport forward")
 
     if private_model:
         step = make_dual_eval_step(gpu_model)
         metrics = run_dual_eval(step, batches)
-        cpu_sums = make_dual_eval_step(cpu_model, device="cpu")(batches[0])
+        cpu_sums = make_dual_eval_step(cpu_model, device="cpu")(compared)
     else:
         step = make_eval_step(gpu_model)
         metrics = run_eval(step, batches)
-        cpu_sums = make_eval_step(cpu_model, device="cpu")(batches[0])
-    gpu_sums = step(batches[0])
+        cpu_sums = make_eval_step(cpu_model, device="cpu")(compared)
+    gpu_sums = step(compared)
     for k, v in cpu_sums.items():
         if bf16:  # one bf16 logit flip moves a correct count by one
             torch.testing.assert_close(gpu_sums[k].cpu().double(), v.double(),
@@ -1001,12 +1084,49 @@ def where_time_goes(gpu_model, smi: str, reps: int = 5,
         "its device time")
 
 
+def resnet_serve(seed: int, smi: str, launches, reset,
+                 arch: str = "resnet18") -> dict:
+    """The serving path (``serve_path``) on ResNet18Private, or ``arch``
+    with its config (ResNet50Private: K2 at (N,512,8,8), (N,512,4,4) and,
+    without the ReLU, (N,2048,4,4)), from ``seed``, f32 and bf16, with the
+    arch's K2 launches in each private forward and none in a public one
+    (bf16 held to the CPU on SERVE_BF16_CPU_ROWS rows); then Predictor's
+    img/s, the verification latency and the device time by kernel.
+    Returns {path name: launch counts}."""
+    batches = request_batches(3, seed)
+    prefix = "resnet" if arch == "resnet18" else arch
+    out = {}
+    for form, dtype in (("passport_epilogue", None),
+                        ("passport_epilogue_bf16", BF16)):
+        cpu_model = random_model(seed, dtype, arch)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        forged = forged_passports(cpu_model, seed + 2)
+        reset()
+        serve_path(gpu_model, cpu_model, batches, forged, launches, form,
+                   per_forward=K2_PER_FORWARD[arch],
+                   cpu_rows=SERVE_BF16_CPU_ROWS[arch] if dtype
+                   else REQUEST_BATCH)
+        counts = launches()
+        log(f"{MODEL_NAMES[arch]} serving-path launches ({form}): {counts}")
+        if not counts[form] or sum(counts.values()) != counts[form]:
+            raise AssertionError(f"{form} did not carry the {arch} serving "
+                                 f"path: {counts}")
+        out[f"{prefix}_serve_{'bf16' if dtype else 'f32'}"] = counts
+        label = "bf16" if dtype else "f32 (TF32 off)"
+        throughput(gpu_model, smi, f"{MODEL_NAMES[arch]} {label}")
+        where_time_goes(gpu_model, smi, per_forward=K2_PER_FORWARD[arch])
+        log(f"peak device memory: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del gpu_model, cpu_model
+    return out
+
+
 # ------------------------------------------------------------- training
 
-def train_model(seed: int, device: str, dtype=None):
+def train_model(seed: int, device: str, dtype=None, arch: str = "resnet18"):
     """bench.py's model: V2 ResNet18Private, resnet18_passport.json with
     ('bn', 'shuffle', 0.1), weights, passports and signatures from seed, in
-    compute dtype ``dtype``."""
+    compute dtype ``dtype``; or ``arch`` with its config (CONFIGS)."""
     from deepipr_tpu_torch.models.registry import build_model
     from deepipr_tpu_torch.utils.config import (
         construct_passport_kwargs,
@@ -1014,19 +1134,21 @@ def train_model(seed: int, device: str, dtype=None):
     )
 
     kw, _ = construct_passport_kwargs(
-        load_passport_config("passport_configs/resnet18_passport.json"),
+        load_passport_config(CONFIGS.get(arch, RESNET_CONFIG)),
         "bn", "shuffle", 0.1)
-    return build_model("resnet18", 10, norm_type="bn", passport_kwargs=kw,
+    return build_model(arch, 10, norm_type="bn", passport_kwargs=kw,
                        private=True, seed=seed, dtype=dtype, device=device)
 
 
-def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32):
+def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32,
+               arch: str = "resnet18"):
     """bench.py's loop through the port's entry points, in ``dtype`` (K1's
     output and the model's compute dtype): one warm-up and TIMED_EPOCHS
     timed epochs, host-clocked with one read of the epoch's mean metrics at
     its end; img/s from the best timed epoch. Returns the trained model,
     its state, the resident set, the path's launch counts, held-out batches
-    of the same synthetic distribution and the img/s."""
+    of the same synthetic distribution and the img/s. ``arch``: the model
+    of ``train_model``."""
     from deepipr_tpu_torch.data.datasets import normalize, synthetic_dataset
     from deepipr_tpu_torch.train.epoch import (
         device_resident,
@@ -1041,7 +1163,7 @@ def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32):
                 for i in range(0, len(x_test), REQUEST_BATCH)]
     bf16 = dtype == BF16
     k1 = "fused_augment_bf16" if bf16 else "fused_augment"
-    model = train_model(seed, "cuda", dtype if bf16 else None)
+    model = train_model(seed, "cuda", dtype if bf16 else None, arch)
     xs, ys = device_resident(x, y)
     epoch_fn = make_epoch_train_fn(model, True, TRAIN_BATCH, TRAIN_PAD,
                                    seed=seed, out_dtype=dtype)
@@ -1076,7 +1198,7 @@ def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32):
         raise AssertionError(f"non-finite training metrics {history}")
     best = min(seconds[1:])
     rate = steps * TRAIN_BATCH / best
-    log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH} "
+    log(f"throughput: train {MODEL_NAMES[arch]} V2 batch {TRAIN_BATCH} "
         f"{'bf16' if bf16 else 'f32 (TF32 off)'}, device-resident epoch "
         f"incl. K1: {rate:.1f} img/s (best of {TIMED_EPOCHS} epochs: "
         f"{', '.join(f'{s:.3f}' for s in seconds[1:])} s) [{smi}]")
@@ -1085,12 +1207,13 @@ def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32):
     return model, state, xs, ys, counts, held_out, rate
 
 
-def train_parity(seed: int, dtype=torch.float32) -> None:
-    """Two steps from the same weights, permutation and draws: the card
-    through the kernels, the CPU through their plain versions. In bf16 the
-    parameters are held norm-wise only (BF16_UPDATE_TOL per parameter,
-    BF16_WHOLE_UPDATE_TOL for the whole update), the metrics and BN
-    statistics at BF16_TRAIN_TOL."""
+def train_parity(seed: int, dtype=torch.float32, arch: str = "resnet18",
+                 steps: int = 2) -> None:
+    """``steps`` (1 or 2) steps from the same weights, permutation and
+    draws: the card through the kernels, the CPU through their plain
+    versions. In bf16 the parameters are held norm-wise only
+    (BF16_UPDATE_TOL per parameter, BF16_WHOLE_UPDATE_TOL for the whole
+    update), the metrics and BN statistics at BF16_TRAIN_TOL."""
     from deepipr_tpu_torch.data.datasets import synthetic_dataset
     from deepipr_tpu_torch.data.device_augment import draw_augment
     from deepipr_tpu_torch.train.epoch import (
@@ -1105,7 +1228,7 @@ def train_parity(seed: int, dtype=torch.float32) -> None:
     perm = torch.randperm(len(x), generator=gen)
     draws = [draw_augment(gen, PARITY_BATCH, TRAIN_PAD) for _ in range(2)]
     bf16 = dtype == BF16
-    cpu_model = train_model(seed + 3, "cpu", dtype if bf16 else None)
+    cpu_model = train_model(seed + 3, "cpu", dtype if bf16 else None, arch)
     start = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
     runs = {}
     for dev, model in (("cpu", cpu_model),
@@ -1116,11 +1239,12 @@ def train_parity(seed: int, dtype=torch.float32) -> None:
                                                  for t in draws[step]))
         state = TrainState.create(model, TRAIN_LR)
         state, metrics = fn(state, *device_resident(x, y, dev), 0,
-                            perm=perm.to(dev))
+                            perm=perm[:steps * PARITY_BATCH].to(dev))
         runs[dev] = (model, {k: v.item() for k, v in metrics.items()})
     (cpu, cpu_metrics), (gpu, gpu_metrics) = runs["cpu"], runs["cuda"]
-    log(f"train parity ({dtype}): 2 steps at batch {PARITY_BATCH}, card vs "
-        f"CPU: metrics {gpu_metrics} vs {cpu_metrics}")
+    log(f"train parity {arch} ({dtype}): {steps} steps at batch "
+        f"{PARITY_BATCH}, card vs CPU: metrics {gpu_metrics} vs "
+        f"{cpu_metrics}")
     tol = BF16_TRAIN_TOL if bf16 else TRAIN_TOL
     update_tol = BF16_UPDATE_TOL if bf16 else UPDATE_TOL
     gpu_state = gpu.state_dict()
@@ -1196,10 +1320,37 @@ def train_profile(model, state, xs, ys, seed: int, smi: str,
     batch = {"image": xs, "index": rows, "label": ys[rows.long()]}
     step(state, batch)
     us = profiled(lambda: step(state, batch), reps,
-                  f"train step {dtype}, batch {TRAIN_BATCH}", smi, top=16)
+                  f"{type(model).__name__} {model.num_blocks} train step "
+                  f"{dtype}, batch {TRAIN_BATCH}", smi, top=16)
     k1 = sum(t for name, t in us.items() if "fused_augment" in name)
     log(f"  K1 fused_augment: {k1:.1f} us/step, "
         f"{100 * k1 / sum(us.values()):.2f} % of the step's device time")
+
+
+def resnet_train(seed: int, smi: str, launches, reset,
+                 arch: str = "resnet18") -> dict:
+    """bench.py's loop (``train_path``) on ResNet18Private or ``arch``, f32
+    and bf16, K1 counted; card against CPU as PARITY_STEPS gives it; the
+    trained model through the eval entry points; one profiled step of
+    each. Returns {path name: launch counts}."""
+    prefix = "resnet" if arch == "resnet18" else arch
+    out, rates = {}, {}
+    for form, dtype in (("fused_augment", torch.float32),
+                        ("fused_augment_bf16", BF16)):
+        trained, state, xs, ys, counts, held_out, rates[form] = train_path(
+            seed, smi, launches, reset, dtype, arch)
+        out[f"{prefix}_train_{'bf16' if dtype == BF16 else 'f32'}"] = counts
+        if dtype in PARITY_STEPS[arch]:
+            train_parity(seed, dtype, arch, PARITY_STEPS[arch][dtype])
+        trained_serving(trained, held_out)
+        train_profile(trained, state, xs, ys, seed, smi, dtype=dtype)
+        del trained, state, xs, ys
+    log(f"throughput: train {MODEL_NAMES[arch]} V2 batch {TRAIN_BATCH}: "
+        f"bf16 {rates['fused_augment_bf16']:.1f} img/s beside f32 "
+        f"{rates['fused_augment']:.1f} img/s "
+        f"({rates['fused_augment_bf16'] / rates['fused_augment']:.2f}x) "
+        f"[{smi}]")
+    return out
 
 
 # ------------------------------------------------------------ entry point
@@ -1404,9 +1555,11 @@ def attack_path(best: str, smi: str, launches, reset) -> dict:
 def ambiguity_checks(argv: list, launches, reset, private: bool = True,
                      per_step: int = 5,
                      batch_sizes=(ATTACK_BATCH, REQUEST_BATCH),
-                     forge_step: bool = True) -> float:
+                     forge_step: bool = True, models=None) -> float:
     """On the checkpoint the attack CLIs' ``argv`` name (by default the V2
-    best.ckpt): K2 and K2-bwd launches per ambiguity step (``per_step``
+    best.ckpt), or on ``models`` ({"cpu": model, "cuda": its copy}, for an
+    architecture the attack CLIs do not take), ``argv`` then unused: K2 and
+    K2-bwd launches per ambiguity step (``per_step``
     each) at ``batch_sizes``; the CE and sign-loss gradient (maximize
     coefficient 0) finite and non-zero on every fake passport, and within
     UPDATE_TOL of its norm of the CPU's on the same weights and batch; then
@@ -1419,9 +1572,10 @@ def ambiguity_checks(argv: list, launches, reset, private: bool = True,
     from deepipr_tpu_torch.cli import passport_attack_3
     from deepipr_tpu_torch.serve import passports
 
-    args = passport_attack_3.build_parser().parse_args(argv)
-    models = {dev: load_attacked_model(args, device=dev)[0]
-              for dev in ("cpu", "cuda")}
+    if models is None:
+        args = passport_attack_3.build_parser().parse_args(argv)
+        models = {dev: load_attacked_model(args, device=dev)[0]
+                  for dev in ("cpu", "cuda")}
     images = request_batches(1, 5)[0]
     # the attack CLIs' batch
     parity = {k: v[:ATTACK_BATCH] for k, v in images.items()}
@@ -2031,20 +2185,21 @@ def _norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def fold_path(seed: int, smi: str, launches, reset) -> dict:
+def fold_path(seed: int, smi: str, launches, reset,
+              archs=("resnet18", "alexnet"), timed: bool = True) -> dict:
     """``Predictor(folded=True)`` for each branch of ResNet18Private and
-    AlexNet V2 (random weights, passports and BN statistics from ``seed``),
-    f32 and bf16, against the unfolded model on the card: f32 at FOLD_TOL,
-    bf16 within BF16_LOGITS_NORM_TOL of the norm; a folded forward
-    launches no kernel, the unfolded private one K2 in the dtype's form.
-    Then folded and unfolded img/s in turns. Returns the path's launch
-    counts (the unfolded forwards' K2)."""
+    AlexNet V2 (or ``archs``; random weights, passports and BN statistics
+    from ``seed``), f32 and bf16, against the unfolded model on the card:
+    f32 at FOLD_TOL, bf16 within BF16_LOGITS_NORM_TOL of the norm; a folded
+    forward launches no kernel, the unfolded private one K2 in the dtype's
+    form. Then (``timed``) folded and unfolded img/s in turns. Returns the
+    path's launch counts (the unfolded forwards' K2)."""
     from deepipr_tpu_torch.serve import Predictor
 
     batches = request_batches(1, seed)
     counts = {}
-    for arch in ("resnet18", "alexnet"):
-        per_forward = ALEXNET_K2 if arch == "alexnet" else RESNET_K2
+    for arch in archs:
+        per_forward = K2_PER_FORWARD[arch]
         for form, dtype in (("passport_epilogue", None),
                             ("passport_epilogue_bf16", BF16)):
             gpu_model = random_model(seed, dtype, arch).to("cuda")
@@ -2076,8 +2231,9 @@ def fold_path(seed: int, smi: str, launches, reset) -> dict:
                     f"{err:.3g} of the norm; 0 launches folded")
             for k, v in launches().items():
                 counts[k] = counts.get(k, 0) + v
-            label = f"{arch} V2 {'bf16' if dtype else 'f32 (TF32 off)'}"
-            folded_throughput(gpu_model, smi, label)
+            if timed:
+                label = f"{arch} V2 {'bf16' if dtype else 'f32 (TF32 off)'}"
+                folded_throughput(gpu_model, smi, label)
             del gpu_model
     return counts
 
@@ -2120,14 +2276,15 @@ def folded_throughput(gpu_model, smi: str, label: str) -> None:
 
 # -------------------------------------------------------------- interop
 
-def interop_path(best: str, seed: int, smi: str, launches, reset) -> dict:
-    """The V2 best.ckpt (f32 model) exported to a reference-layout .pth and
-    imported into a fresh model bit for bit, its genuine detection rate 1.0
-    (K2); a hand-built torchvision ResNet18 through
-    ``load_torch_pretrained``, card vs CPU at 224 px; an ImageNet
-    ResNet18Private private forward at 224 px, batch 64 (K2 at
-    (64,512,7,7)), card vs CPU in f32 and bf16. Returns the path's launch
-    counts."""
+def interop_path(best: str, seed: int, smi: str, launches, reset,
+                 arch: str = "resnet18") -> dict:
+    """The V2 best.ckpt of ``arch`` (f32 model) exported to a
+    reference-layout .pth and imported into a fresh model bit for bit, its
+    genuine detection rate 1.0 (K2); hand-built torchvision models
+    (TORCHVISION_ARCHS) through ``load_torch_pretrained``, card vs CPU at
+    224 px; an ImageNet private forward of ``arch`` at 224 px, batch 64
+    (ResNet18Private: K2 at (64,512,7,7)), card vs CPU in f32 and bf16.
+    Returns the path's launch counts."""
     from deepipr_tpu_torch.interop.torch_export import save_torch_checkpoint
     from deepipr_tpu_torch.interop.torch_import import load_torch_checkpoint
     from deepipr_tpu_torch.interop.torchvision_import import (
@@ -2138,12 +2295,13 @@ def interop_path(best: str, seed: int, smi: str, launches, reset) -> dict:
     from deepipr_tpu_torch.train.state import TrainState
     from deepipr_tpu_torch.utils.checkpoint import load_state
 
-    os.makedirs(os.path.join("build", "chip_smoke_interop"), exist_ok=True)
-    pth = os.path.join("build", "chip_smoke_interop", "v2.pth")
-    trained = train_model(12345, "cuda")
+    folder = os.path.join("build", "chip_smoke_interop")
+    os.makedirs(folder, exist_ok=True)
+    pth = os.path.join(folder, f"{arch}_v2.pth")
+    trained = train_model(12345, "cuda", arch=arch)
     load_state(best, TrainState.create(trained, 0.0), restore_opt=False)
     save_torch_checkpoint(pth, trained)
-    fresh = train_model(54321, "cuda")
+    fresh = train_model(54321, "cuda", arch=arch)
     reset()
     load_torch_checkpoint(pth, fresh)
     differ = [k for k, v in trained.state_dict().items()
@@ -2154,46 +2312,50 @@ def interop_path(best: str, seed: int, smi: str, launches, reset) -> dict:
     if verdict["detection_rate"] != 1.0:
         raise AssertionError(f"the imported V2 model does not verify: "
                              f"{verdict}")
-    if launches()["passport_epilogue"] != RESNET_K2:
+    if launches()["passport_epilogue"] != K2_PER_FORWARD[arch]:
         raise AssertionError(f"verify_ownership launches {launches()}")
-    log(f"interop: V2 best.ckpt -> reference .pth -> a fresh model, bit for "
-        f"bit; detection {verdict['layers']}")
+    log(f"interop: {MODEL_NAMES[arch]} V2 best.ckpt -> reference .pth -> a "
+        f"fresh model, bit for bit; detection {verdict['layers']}")
     counts = launches()
     del trained, fresh
 
     rng = np.random.default_rng(seed)
-    sd = torchvision_resnet18(rng)
-    tv = os.path.join("build", "chip_smoke_interop", "tv_resnet18.pth")
-    torch.save(sd, tv)
-    models = {}
-    for dev in ("cpu", "cuda"):
-        models[dev] = build_model("resnet18", 1000, input_size=IMAGENET_SIZE,
-                                  device=dev)
-        load_torch_pretrained(tv, models[dev], "resnet18")
-    if not torch.equal(models["cuda"].linear.weight.cpu(), sd["fc.weight"]):
-        raise AssertionError("torchvision fc.weight did not reach linear")
     x = torch.randn((4, IMAGENET_SIZE, IMAGENET_SIZE, 3),
                     generator=torch.Generator().manual_seed(seed + 11))
-    gpu = Predictor(models["cuda"]).logits(x).cpu()
-    cpu = Predictor(models["cpu"], device="cpu").logits(x)
-    torch.testing.assert_close(gpu, cpu, **LOGITS_TOL)
-    log(f"interop: hand-built torchvision ResNet18 via "
-        f"load_torch_pretrained, 224 px, card vs CPU largest error "
-        f"{(gpu - cpu).abs().max().item():.3g}")
-    del models
+    for tv_arch in TORCHVISION_ARCHS[arch]:
+        sd = torchvision_resnet(rng, tv_arch)
+        tv = os.path.join(folder, f"tv_{tv_arch}.pth")
+        torch.save(sd, tv)
+        models = {}
+        for dev in ("cpu", "cuda"):
+            models[dev] = build_model(tv_arch, 1000, input_size=IMAGENET_SIZE,
+                                      device=dev)
+            load_torch_pretrained(tv, models[dev], tv_arch)
+        if not torch.equal(models["cuda"].linear.weight.cpu(),
+                           sd["fc.weight"]):
+            raise AssertionError(f"torchvision {tv_arch} fc.weight did not "
+                                 "reach linear")
+        gpu = Predictor(models["cuda"]).logits(x).cpu()
+        cpu = Predictor(models["cpu"], device="cpu").logits(x)
+        torch.testing.assert_close(gpu, cpu, **LOGITS_TOL)
+        log(f"interop: hand-built torchvision {tv_arch} via "
+            f"load_torch_pretrained, 224 px, card vs CPU largest error "
+            f"{(gpu - cpu).abs().max().item():.3g}")
+        del models
 
     for form, dtype in (("passport_epilogue", None),
                         ("passport_epilogue_bf16", BF16)):
         reset()
-        imagenet_resnet_forward(seed, form, dtype, launches)
+        imagenet_resnet_forward(seed, form, dtype, launches, arch)
         for k, v in launches().items():
             counts[k] = counts.get(k, 0) + v
     return counts
 
 
-def torchvision_resnet18(rng) -> dict:
-    """torchvision ResNet-18's state-dict keys and shapes with random
-    weights and BN statistics (no pretrained weights are downloaded)."""
+def torchvision_resnet(rng, arch: str) -> dict:
+    """torchvision ResNet-18's, -34's or -50's state-dict keys and shapes
+    with random weights and BN statistics (no pretrained weights are
+    downloaded)."""
     def conv(co, ci, k):
         return rng.normal(0, (2 / (co * k * k)) ** 0.5, (co, ci, k, k))
 
@@ -2203,21 +2365,36 @@ def torchvision_resnet18(rng) -> dict:
         sd[f"{prefix}.running_mean"] = rng.normal(0, 0.1, c)
         sd[f"{prefix}.running_var"] = rng.uniform(0.5, 2.0, c)
 
+    blocks = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
+              "resnet50": (3, 4, 6, 3)}[arch]
+    bottleneck = arch == "resnet50"
+    expansion = 4 if bottleneck else 1
     sd = {"conv1.weight": conv(64, 3, 7)}
     bn("bn1", 64)
-    chans = {"layer1": (64, 64), "layer2": (64, 128),
-             "layer3": (128, 256), "layer4": (256, 512)}
-    for layer, (cin, cout) in chans.items():
-        for b in range(2):
-            sd[f"{layer}.{b}.conv1.weight"] = conv(cout,
-                                                   cin if b == 0 else cout, 3)
-            sd[f"{layer}.{b}.conv2.weight"] = conv(cout, cout, 3)
-            bn(f"{layer}.{b}.bn1", cout)
-            bn(f"{layer}.{b}.bn2", cout)
-            if b == 0 and layer != "layer1":
-                sd[f"{layer}.0.downsample.0.weight"] = conv(cout, cin, 1)
-                bn(f"{layer}.0.downsample.1", cout)
-    sd["fc.weight"] = rng.normal(0, 512 ** -0.5, (1000, 512))
+    cin = 64
+    for li, (planes, n) in enumerate(zip((64, 128, 256, 512), blocks),
+                                     start=1):
+        cout = planes * expansion
+        for b in range(n):
+            p = f"layer{li}.{b}"
+            c1_in = cin if b == 0 else cout
+            if bottleneck:
+                sd[f"{p}.conv1.weight"] = conv(planes, c1_in, 1)
+                sd[f"{p}.conv2.weight"] = conv(planes, planes, 3)
+                sd[f"{p}.conv3.weight"] = conv(cout, planes, 1)
+                bn(f"{p}.bn1", planes)
+                bn(f"{p}.bn2", planes)
+                bn(f"{p}.bn3", cout)
+            else:
+                sd[f"{p}.conv1.weight"] = conv(cout, c1_in, 3)
+                sd[f"{p}.conv2.weight"] = conv(cout, cout, 3)
+                bn(f"{p}.bn1", cout)
+                bn(f"{p}.bn2", cout)
+            if b == 0 and (li != 1 or bottleneck):
+                sd[f"{p}.downsample.0.weight"] = conv(cout, cin, 1)
+                bn(f"{p}.downsample.1", cout)
+        cin = cout
+    sd["fc.weight"] = rng.normal(0, cin ** -0.5, (1000, cin))
     sd["fc.bias"] = rng.normal(0, 0.1, 1000)
     out = {k: torch.from_numpy(np.asarray(v, np.float32))
            for k, v in sd.items()}
@@ -2226,23 +2403,29 @@ def torchvision_resnet18(rng) -> dict:
     return out
 
 
-def imagenet_resnet_forward(seed: int, form: str, dtype, launches) -> None:
+def imagenet_resnet_forward(seed: int, form: str, dtype, launches,
+                            arch: str = "resnet18") -> None:
     """One private forward of an ImageNet ResNet18Private (1000 classes,
-    224 px, resnet18_passport.json: K2 at (64,512,7,7)) through Predictor,
-    against the CPU: f32 at LOGITS_TOL on the batch; bf16 within
-    BF16_LOGITS_NORM_TOL of the norm on 8 rows."""
+    224 px, resnet18_passport.json: K2 at (64,512,7,7)), or of ``arch``
+    with its config (ResNet50Private: K2 at (64,512,14,14), (64,512,7,7)
+    and, without the ReLU, (64,2048,7,7)), through Predictor, against the
+    CPU: f32 at LOGITS_TOL on the batch; bf16 within BF16_LOGITS_NORM_TOL
+    of the norm on 8 rows."""
     from deepipr_tpu_torch.serve import Predictor
 
-    cpu_model = random_model(seed, dtype, "resnet18", True, num_classes=1000,
+    cpu_model = random_model(seed, dtype, arch, True, num_classes=1000,
                              size=IMAGENET_SIZE)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    if tuple(gpu_model.layer4_0.convbn_2.key.shape) != (1, 512, 7, 7):
+    per_forward = K2_PER_FORWARD[arch]
+    last = (gpu_model.layer4_0.convbn_3 if arch == "resnet50"
+            else gpu_model.layer4_0.convbn_2)
+    if tuple(last.key.shape) != (1, 512, 7, 7):
         raise AssertionError("the ImageNet ResNet's layer4 is not 7x7")
     x = torch.randn((IMAGENET_BATCH, IMAGENET_SIZE, IMAGENET_SIZE, 3),
                     generator=torch.Generator().manual_seed(seed + 10))
     before = launches()[form]
     gpu_logits = Predictor(gpu_model, ind=1).logits(x).cpu()
-    if launches()[form] - before != RESNET_K2:
+    if launches()[form] - before != per_forward:
         raise AssertionError(f"ImageNet ResNet private forward: "
                              f"{launches()[form] - before} {form} launches")
     rows = IMAGENET_BATCH if dtype is None else 8
@@ -2258,16 +2441,108 @@ def imagenet_resnet_forward(seed: int, form: str, dtype, launches) -> None:
         if err > BF16_LOGITS_NORM_TOL:
             raise AssertionError(f"bf16 ImageNet ResNet logits differ from "
                                  f"the CPU's by {err} of their norm")
-    log(f"ImageNet ResNet18Private private forward, batch {IMAGENET_BATCH}, "
-        f"{dtype or torch.float32}: {RESNET_K2} {form} launches at 7x7; card "
-        f"vs CPU on {rows} rows: {err:.3g} "
+    log(f"ImageNet {MODEL_NAMES[arch]} private forward, batch "
+        f"{IMAGENET_BATCH}, {dtype or torch.float32}: {per_forward} {form} "
+        f"launches; card vs CPU on {rows} rows: {err:.3g} "
         f"({'largest error' if dtype is None else 'of the norm'})")
+
+
+# ------------------------------------------------------------- ResNet-50
+
+def resnet50_cli(smi: str, launches, reset):
+    """The training entry point with --arch resnet50, in-process: scheme 0
+    (train_v1) for 1 epoch, then V2 (train_v23, resnet50_passport.json,
+    shuffle keys from its last.ckpt, --epoch-scan --pallas-input, f32) for
+    RESNET50_EPOCHS, batch 256 over 12,800 images: K1 f32 every step and
+    K2 f32 10 times a validation batch and in each signature detection,
+    nothing else; the loss falls, the last epoch's mean train_sign_acc and
+    every detection row read 1.0, and its best.ckpt in a fresh model
+    verifies. Returns the V2 run's launch counts and its best.ckpt."""
+    import shutil
+
+    from deepipr_tpu_torch.cli import train_v1, train_v23
+    from deepipr_tpu_torch.models.registry import build_model
+    from deepipr_tpu_torch.serve import verify_ownership
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.utils.checkpoint import load_state
+
+    shutil.rmtree(RESNET50_LOGDIR, ignore_errors=True)
+    size = {"synthetic_train": TRAIN_IMAGES}
+    t = time.perf_counter()
+    run0 = train_v1.main(RESNET50_CLI + ["--epochs", "1"], **size)
+    log(f"ResNet-50 entry point: scheme 0, 1 epoch, in "
+        f"{time.perf_counter() - t:.1f} s: {history(run0.logdir)[-1]}")
+    pretrained = os.path.join(run0.logdir, "models", "last.ckpt")
+    reset()
+    t = time.perf_counter()
+    run2 = train_v23.main(RESNET50_CLI + RESNET50_V2 + [
+        "--pretrained-path", pretrained, "--epochs", str(RESNET50_EPOCHS)],
+        **size)
+    counts = launches()
+    rows = history(run2.logdir)
+    log(f"ResNet-50 entry point: V2 --epoch-scan --pallas-input, "
+        f"{RESNET50_EPOCHS} epochs, in {time.perf_counter() - t:.1f} s; "
+        f"launches {counts}")
+    for epoch, row in enumerate(rows):
+        log(f"  epoch {epoch}: train_sign_acc "
+            f"{row['train_sign_acc']}, train_loss {row['train_loss']}, "
+            f"train_sign_loss {row['train_sign_loss']}, "
+            f"valid_total_acc {row['valid_total_acc']}, detection "
+            f"{sorted({v for k, v in row.items() if k.startswith('s_')})}")
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    want = {"fused_augment": steps * RESNET50_EPOCHS,
+            "passport_epilogue": RESNET50_EPOCHS * RESNET50_K2
+            * (len(run2.valid_data) + 1)}
+    if counts != {**dict.fromkeys(counts, 0), **want}:
+        raise AssertionError(f"ResNet-50 entry-point launches {counts}, "
+                             f"expected {want}")
+    if not rows[-1]["train_loss"] < rows[0]["train_loss"]:
+        raise AssertionError("the ResNet-50 V2 run's loss did not fall")
+    signature = {k: v for k, v in rows[-1].items() if k.startswith("s_")}
+    if len(signature) != RESNET50_K2 or rows[-1]["train_sign_acc"] != 1.0 \
+            or set(signature.values()) != {1.0}:
+        raise AssertionError(f"the ResNet-50 V2 run's signature is not "
+                             f"embedded: sign_acc "
+                             f"{rows[-1]['train_sign_acc']}, detection "
+                             f"{signature}")
+    best = os.path.join(run2.logdir, "models", "best.ckpt")
+    fresh = build_model("resnet50", 10, passport_kwargs=run2.passport_kwargs,
+                        private=True, seed=12345)
+    load_state(best, TrainState.create(fresh, 0.0), restore_opt=False)
+    verdict = verify_ownership(fresh, (1, 32, 32, 3), private=True)
+    if verdict["detection_rate"] != 1.0:
+        raise AssertionError(f"the ResNet-50 best.ckpt does not verify: "
+                             f"{verdict}")
+    log(f"  ResNet-50 V2 best.ckpt in a fresh model: detection "
+        f"{verdict['layers']} [{smi}]")
+    return counts, best
+
+
+def resnet50_attack_steps(best: str, launches, reset) -> dict:
+    """``ambiguity_checks`` on the ResNet-50 V2 best.ckpt (f32), which the
+    attack CLIs do not take (their --arch choices are the JAX package's):
+    10 K2 and 10 K2-bwd launches an ambiguity step at batch 64 (4 of each
+    without the ReLU), one ambiguity step and one forge step card vs CPU.
+    Returns the launch counts from the step at batch 64 on."""
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.utils.checkpoint import load_state
+
+    models = {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = train_model(12345, dev, arch="resnet50")
+        load_state(best, TrainState.create(models[dev], 0.0),
+                   restore_opt=False)
+    ambiguity_checks([], launches, reset, per_step=RESNET50_K2,
+                     batch_sizes=(ATTACK_BATCH,), models=models)
+    counts = launches()
+    log(f"ResNet-50 attack steps: launches {counts}")
+    return counts
 
 
 # ----------------------------------------------------------------- main
 
-def shape_key(shape) -> str:
-    return "x".join(map(str, shape))
+def shape_key(shape, relu: bool = True) -> str:
+    return "x".join(map(str, shape)) + ("" if relu else " relu off")
 
 
 def main() -> int:
@@ -2306,20 +2581,23 @@ def main() -> int:
         timing, by_shape = {}, {}
         for form, dtype in (("passport_epilogue", torch.float32),
                             ("passport_epilogue_bf16", BF16)):
-            for shape in (MAIN_SHAPE, (1024, 512, 4, 4), *ALEXNET_TIMED,
-                          IMAGENET_K2):
-                t = time_epilogue(gen, timer, shape, smi, dtype)
-                log(f"{form} {shape}: {json.dumps(t)} [{smi}]")
-                by_shape.setdefault(form, {})[shape_key(shape)] = t
+            for shape, relu in ((MAIN_SHAPE, True), ((1024, 512, 4, 4), True),
+                                *((s, True) for s in ALEXNET_TIMED),
+                                (IMAGENET_K2, True), *RESNET50_TIMED):
+                t = time_epilogue(gen, timer, shape, smi, dtype, relu)
+                log(f"{form} {shape} relu={relu}: {json.dumps(t)} [{smi}]")
+                by_shape.setdefault(form, {})[shape_key(shape, relu)] = t
                 if shape == MAIN_SHAPE:
                     timing[form] = t
-        for shape in ((ATTACK_BATCH, 512, 4, 4), MAIN_SHAPE,
-                      *ALEXNET_BWD_TIMED):
-            t = time_backward(gen, timer, shape, smi)
-            log(f"passport_epilogue_backward {shape}: {json.dumps(t)} "
-                f"[{smi}]")
+        for shape, relu in (((ATTACK_BATCH, 512, 4, 4), True),
+                            (MAIN_SHAPE, True),
+                            *((s, True) for s in ALEXNET_BWD_TIMED),
+                            *RESNET50_BWD_TIMED):
+            t = time_backward(gen, timer, shape, smi, relu)
+            log(f"passport_epilogue_backward {shape} relu={relu}: "
+                f"{json.dumps(t)} [{smi}]")
             by_shape.setdefault("passport_epilogue_backward",
-                                {})[shape_key(shape)] = t
+                                {})[shape_key(shape, relu)] = t
             if shape == (ATTACK_BATCH, 512, 4, 4):
                 timing["passport_epilogue_backward"] = t
         for form, dtype in (("fused_augment", torch.float32),
@@ -2351,45 +2629,10 @@ def main() -> int:
     # the counts set to 0 just before it and read just after
     paths = {}
     with phase("resnet serve"):
-        batches = request_batches(3, args.seed)
-        for form, dtype in (("passport_epilogue", None),
-                            ("passport_epilogue_bf16", BF16)):
-            cpu_model = random_model(args.seed, dtype)
-            gpu_model = copy.deepcopy(cpu_model).to("cuda")
-            forged = forged_passports(cpu_model, args.seed + 2)
-            reset()
-            serve_path(gpu_model, cpu_model, batches, forged, launches, form)
-            counts = launches()
-            log(f"serving-path launches ({form}): {counts}")
-            if not counts[form] or sum(counts.values()) != counts[form]:
-                raise AssertionError(f"{form} did not carry the serving "
-                                     f"path: {counts}")
-            paths[f"resnet_serve_{'bf16' if dtype else 'f32'}"] = counts
-            label = "bf16" if dtype else "f32 (TF32 off)"
-            throughput(gpu_model, smi, label)
-            where_time_goes(gpu_model, smi)
-            log(f"peak device memory: "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-            del gpu_model, cpu_model
+        paths.update(resnet_serve(args.seed, smi, launches, reset))
 
-    rates = {}
     with phase("resnet train"):
-        for form, dtype in (("fused_augment", torch.float32),
-                            ("fused_augment_bf16", BF16)):
-            trained, state, xs, ys, counts, held_out, rates[form] = \
-                train_path(args.seed, smi, launches, reset, dtype)
-            paths[f"resnet_train_{'bf16' if dtype == BF16 else 'f32'}"] = \
-                counts
-            train_parity(args.seed, dtype)
-            trained_serving(trained, held_out)
-            train_profile(trained, state, xs, ys, args.seed, smi,
-                          dtype=dtype)
-            del trained, state, xs, ys
-        log(f"throughput: train ResNet18Private V2 batch {TRAIN_BATCH}: "
-            f"bf16 {rates['fused_augment_bf16']:.1f} img/s beside f32 "
-            f"{rates['fused_augment']:.1f} img/s "
-            f"({rates['fused_augment_bf16'] / rates['fused_augment']:.2f}x) "
-            f"[{smi}]")
+        paths.update(resnet_train(args.seed, smi, launches, reset))
 
     with phase("resnet cli"):
         paths["resnet_cli"], best, v3_best = cli_path(smi, launches, reset)
@@ -2429,16 +2672,42 @@ def main() -> int:
     with phase("interop"):
         paths["interop"] = interop_path(best, args.seed, smi, launches,
                                         reset)
+
+    with phase("resnet50_serve"):
+        paths.update(resnet_serve(args.seed, smi, launches, reset,
+                                  "resnet50"))
+    with phase("resnet50_train"):
+        paths.update(resnet_train(args.seed, smi, launches, reset,
+                                  "resnet50"))
+    with phase("resnet50_cli"):
+        paths["resnet50_cli"], r50_best = resnet50_cli(smi, launches, reset)
+        paths["resnet50_attack_steps"] = resnet50_attack_steps(
+            r50_best, launches, reset)
+    with phase("resnet50_fold_interop"):
+        paths["resnet50_fold"] = fold_path(args.seed, smi, launches, reset,
+                                           archs=("resnet50",), timed=False)
+        paths["resnet50_interop"] = interop_path(
+            r50_best, args.seed, smi, launches, reset, arch="resnet50")
     # K2 f32 on the TL retests; both K2 forms behind the fold checks and in
-    # the ImageNet ResNet forwards
+    # the ImageNet ResNet forwards; K2-bwd in the ResNet-50 attack steps
+    both = ("passport_epilogue", "passport_epilogue_bf16")
     for name, forms in (("transfer", ("passport_epilogue",)),
-                        ("fold", ("passport_epilogue",
-                                  "passport_epilogue_bf16")),
-                        ("interop", ("passport_epilogue",
-                                     "passport_epilogue_bf16"))):
+                        ("fold", both), ("interop", both),
+                        ("resnet50_fold", both), ("resnet50_interop", both),
+                        ("resnet50_attack_steps",
+                         ("passport_epilogue",
+                          "passport_epilogue_backward"))):
         if not all(paths[name].get(form) for form in forms):
             raise AssertionError(f"{forms} not all launched on the {name} "
                                  f"path: {paths[name]}")
+    resnet50 = {form: sum(c.get(form, 0) for name, c in paths.items()
+                          if name.startswith("resnet50"))
+                for form in ("fused_augment", "fused_augment_bf16",
+                             "passport_epilogue", "passport_epilogue_bf16",
+                             "passport_epilogue_backward")}
+    if not all(resnet50.values()):
+        raise AssertionError(f"a kernel form was not launched on the "
+                             f"ResNet-50 paths: {resnet50}")
     log(f"launches by path: {json.dumps(paths)}")
 
     # K2-bwd is the gradient of K2. It replaces no Pallas kernel: the JAX

@@ -1,4 +1,5 @@
-"""Import torchvision-format checkpoints (AlexNet, ResNet-18) into the port.
+"""Import torchvision-format checkpoints (AlexNet, ResNet-18/34/50/101/152)
+into the port.
 
 Counterpart of ``deepipr_tpu/interop/torchvision_import.py``. The
 reference's ``pretrained=True`` paths download torchvision weights and copy
@@ -9,14 +10,17 @@ renamed into the reference layout and loaded through
 
 torchvision AlexNet:  features.{0,3,6,8,10}.{weight,bias} -> features_{0,2,4,5,6}.conv
                       classifier.{1,4,6}.{weight,bias}    -> classifier_{1,4,6}
-torchvision ResNet18: conv1/bn1 -> convbnrelu_1.{conv,bn};
+torchvision ResNet18/34: conv1/bn1 -> convbnrelu_1.{conv,bn};
                       layerL.B.convN/bnN -> layerL_B.{convbnrelu_1,convbn_2};
                       layerL.B.downsample.{0,1} -> layerL_B.shortcut;
                       fc -> linear
+torchvision ResNet50/101/152 (Bottleneck): layerL.B.conv{1,2,3}/bn{1,2,3}
+                      -> layerL_B.{convbnrelu_1,convbnrelu_2,convbn_3};
+                      the rest as ResNet18's
 
 torchvision's AlexNet flattens its 256x6x6 map in (c, h, w) order, as the
-port does, so ``classifier.1`` loads as it is. ResNet34/50 wait for the
-Bottleneck (ROADMAP queue 1, item 4).
+port does, so ``classifier.1`` loads as it is. torchvision's Bottleneck
+strides its 3x3 conv2, as the port's does.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ from deepipr_tpu_torch.interop.torch_import import (
 _ALEXNET_FEATURE_MAP = {"0": "0", "3": "2", "6": "4", "8": "5", "10": "6"}
 _RESNET_SUB = {"conv1": "convbnrelu_1", "conv2": "convbn_2",
                "bn1": "convbnrelu_1", "bn2": "convbn_2"}
+# Bottleneck (resnet50/101/152): three convs per block
+_BOTTLENECK_SUB = {"conv1": "convbnrelu_1", "conv2": "convbnrelu_2",
+                   "conv3": "convbn_3",
+                   "bn1": "convbnrelu_1", "bn2": "convbnrelu_2",
+                   "bn3": "convbn_3"}
 
 
 def _rename_alexnet(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -48,7 +57,8 @@ def _rename_alexnet(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _rename_resnet(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _rename_resnet(sd: Mapping[str, torch.Tensor],
+                   submap: Mapping[str, str]) -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in sd.items():
         parts = k.split(".")
@@ -63,9 +73,9 @@ def _rename_resnet(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             if sub == "downsample":
                 which = "conv" if parts[3] == "0" else "bn"
                 out[f"{layer}.{block}.shortcut.{which}.{parts[4]}"] = v
-            elif sub in _RESNET_SUB:
+            elif sub in submap:
                 kind = "conv" if sub.startswith("conv") else "bn"
-                out[f"{layer}.{block}.{_RESNET_SUB[sub]}.{kind}.{parts[3]}"] = v
+                out[f"{layer}.{block}.{submap[sub]}.{kind}.{parts[3]}"] = v
             else:
                 raise KeyError(f"unexpected torchvision resnet key: {k}")
         else:
@@ -77,17 +87,16 @@ def import_torchvision(sd: Mapping[str, torch.Tensor], model: torch.nn.Module,
                        arch: str, source: str = "torchvision checkpoint"
                        ) -> None:
     """Load a torchvision state dict into ``model`` (in place), for arch
-    'alexnet' or 'resnet18'/'resnet'."""
+    'alexnet', 'resnet18'/'resnet', 'resnet34', 'resnet50', 'resnet101' or
+    'resnet152'."""
     sd = {k: v for k, v in sd.items()
           if not k.endswith("num_batches_tracked")}
     if arch == "alexnet":
         renamed = _rename_alexnet(sd)
-    elif arch in ("resnet18", "resnet"):
-        renamed = _rename_resnet(sd)
-    elif arch in ("resnet34", "resnet50", "resnet101", "resnet152"):
-        raise NotImplementedError(
-            f"torchvision {arch} is not ported yet (ROADMAP queue 1, item 4: "
-            "Bottleneck, ResNet34/50)")
+    elif arch in ("resnet18", "resnet", "resnet34"):
+        renamed = _rename_resnet(sd, _RESNET_SUB)
+    elif arch in ("resnet50", "resnet101", "resnet152"):
+        renamed = _rename_resnet(sd, _BOTTLENECK_SUB)
     else:
         raise ValueError(f"unsupported torchvision arch: {arch}")
     import_torch_state_dict(model, renamed, source)

@@ -2,8 +2,8 @@
 
 Counterpart of ``deepipr_tpu/models/registry.py`` (reference construct_model
 dispatch, experiments/classification.py:66-126,
-classification_private.py:66-106), for the archs ported so far: AlexNet,
-ResNet9 and ResNet18.
+classification_private.py:66-106): AlexNet, ResNet9, ResNet18, ResNet34
+and ResNet50, the JAX package's archs.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from deepipr_tpu_torch.models.alexnet import AlexNet
-from deepipr_tpu_torch.models.resnet import ResNet9, ResNet18
+from deepipr_tpu_torch.models.resnet import ResNet9, ResNet18, ResNet34, \
+    ResNet50
 from deepipr_tpu_torch.utils.device import DeviceLike, resolve_device
 
 ARCHS = ("alexnet", "resnet", "resnet9", "resnet34", "resnet50")
@@ -26,10 +27,6 @@ NUM_CLASSES = {
     "imagenet1000": 1000,
     "synthetic": 10,
 }
-
-# archs of the JAX package that the port has not reached yet
-_LATER = ("resnet34", "resnet50")
-
 
 def build_model(
     arch: str,
@@ -50,14 +47,14 @@ def build_model(
     dev = resolve_device(device)
     if dtype not in (None, torch.bfloat16):
         raise ValueError(f"dtype must be None or torch.bfloat16, got {dtype}")
-    if arch in _LATER:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 4: "
-            "Bottleneck, ResNet34/50)")
     if arch == "alexnet":
         make = AlexNet
     elif arch in ("resnet", "resnet18"):
         make = ResNet18
+    elif arch == "resnet34":
+        make = ResNet34
+    elif arch == "resnet50":
+        make = ResNet50
     elif arch == "resnet9":
         make = ResNet9
     else:

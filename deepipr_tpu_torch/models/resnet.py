@@ -7,16 +7,21 @@ resnet_passport_private.py), quirks included:
 - BasicBlock: convbnrelu_1 -> convbn_2 (the reference applies ReLU inside
   convbn_2 as well, resnet_normal.py:16) -> + shortcut(x) -> ReLU; the
   shortcut ConvBlock also carries a ReLU (resnet_normal.py:19-20).
+- Bottleneck: 1x1 -> 3x3 (the stride, torchvision's layout) -> 1x1 (no
+  ReLU) + shortcut (no ReLU) -> ReLU. Passport positions are the JAX
+  package's extension beyond the reference (``resnet.py:123-172``):
+  convbn_3 and shortcut keep relu=False in every scheme, so the fused
+  epilogue (K2) and its gradient run without their ReLU there.
 - CIFAR stem: 3x3 s1; ImageNet stem: 7x7 s2 + MaxPool(3, 2, 1).
 - Per-sub-block passport flags via nested passport_kwargs
-  (layerN -> block idx -> convbnrelu_1/convbn_2/shortcut).
+  (layerN -> block idx -> convbnrelu_1/convbn_2/shortcut, or
+  convbnrelu_1/convbnrelu_2/convbn_3/shortcut in a Bottleneck).
 
 Module names follow the JAX module paths (``layer4_0.convbnrelu_1``), so a
 JAX variable tree maps onto the state dict by path (interop/jax_params.py).
 ``dtype`` (None or torch.bfloat16) is every block's compute dtype; the
 global average pool returns f32 and the ``linear`` head runs in f32, so
-logits and losses are f32 (``resnet.py:237-238``). Bottleneck and
-ResNet34/50 are a later slice.
+logits and losses are f32 (``resnet.py:237-238``).
 """
 
 from __future__ import annotations
@@ -71,6 +76,59 @@ class BasicBlock(nn.Module):
         aux = {}
         out, aux["convbnrelu_1"] = self.convbnrelu_1(x, ind, force_passport)
         out, aux["convbn_2"] = self.convbn_2(out, ind, force_passport)
+        if self.shortcut is not None:
+            sc, aux["shortcut"] = self.shortcut(x, ind, force_passport)
+            out = out + sc
+        else:
+            out = out + x
+        return F.relu(out), {k: v for k, v in aux.items() if v is not None}
+
+
+class Bottleneck(nn.Module):
+    """Bottleneck block; passport_kwargs maps sub-block name -> layer
+    kwargs. A config may leave out ``shortcut`` (or any sub-block): that
+    position is then a plain ConvBlock in the model's norm, as the JAX
+    Bottleneck reads its sub-kwargs with ``.get`` (``resnet.py:141-143``).
+    Sub-blocks run, and their aux comes out, in the JAX call order:
+    convbnrelu_1, convbnrelu_2, convbn_3, shortcut."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 norm_type: str = "bn",
+                 passport_kwargs: Optional[Dict[str, Any]] = None,
+                 private: bool = False,
+                 input_hw: Tuple[int, int] = (32, 32),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+
+        def sub(name):
+            return None if passport_kwargs is None else passport_kwargs.get(
+                name)
+
+        out_planes = self.expansion * planes
+        out_hw = conv_out_hw(input_hw, 3, stride, 1)
+        self.output_hw = out_hw
+        self.convbnrelu_1 = make_block(sub("convbnrelu_1"), norm_type,
+                                       in_planes, planes, 1, 1, 0, private,
+                                       True, input_hw, dtype)
+        self.convbnrelu_2 = make_block(sub("convbnrelu_2"), norm_type,
+                                       planes, planes, 3, stride, 1, private,
+                                       True, input_hw, dtype)
+        self.convbn_3 = make_block(sub("convbn_3"), norm_type, planes,
+                                   out_planes, 1, 1, 0, private, False,
+                                   out_hw, dtype)
+        self.shortcut = None
+        if stride != 1 or in_planes != out_planes:
+            self.shortcut = make_block(sub("shortcut"), norm_type, in_planes,
+                                       out_planes, 1, stride, 0, private,
+                                       False, input_hw, dtype)
+
+    def forward(self, x, ind: int = 0, force_passport: bool = False):
+        aux = {}
+        out, aux["convbnrelu_1"] = self.convbnrelu_1(x, ind, force_passport)
+        out, aux["convbnrelu_2"] = self.convbnrelu_2(out, ind, force_passport)
+        out, aux["convbn_3"] = self.convbn_3(out, ind, force_passport)
         if self.shortcut is not None:
             sc, aux["shortcut"] = self.shortcut(x, ind, force_passport)
             out = out + sc
@@ -185,11 +243,34 @@ def _factory(block_cls, num_blocks):
 
 ResNet9 = _factory(BasicBlock, (1, 1, 1, 1))
 ResNet18 = _factory(BasicBlock, (2, 2, 2, 2))
+ResNet34 = _factory(BasicBlock, (3, 4, 6, 3))
+ResNet50 = _factory(Bottleneck, (3, 4, 6, 3))
+ResNet101 = _factory(Bottleneck, (3, 4, 23, 3))
+ResNet152 = _factory(Bottleneck, (3, 8, 36, 3))
 
 
 def ResNet18Private(num_classes=10, passport_kwargs=None, norm_type="bn",
                     imagenet=False, input_size=32, seed=0, dtype=None):
     return ResNet18(num_classes=num_classes, norm_type=norm_type,
+                    passport_kwargs=passport_kwargs, private=True,
+                    imagenet=imagenet, input_size=input_size, seed=seed,
+                    dtype=dtype)
+
+
+# Bottleneck passport models, the JAX package's extension beyond the
+# reference (whose passport machinery stops at BasicBlock); same config
+# format, sub-block names convbnrelu_1/convbnrelu_2/convbn_3/shortcut
+
+def ResNet50Passport(num_classes=10, passport_kwargs=None, norm_type="bn",
+                     imagenet=False, input_size=32, seed=0, dtype=None):
+    return ResNet50(num_classes=num_classes, norm_type=norm_type,
+                    passport_kwargs=passport_kwargs, imagenet=imagenet,
+                    input_size=input_size, seed=seed, dtype=dtype)
+
+
+def ResNet50Private(num_classes=10, passport_kwargs=None, norm_type="bn",
+                    imagenet=False, input_size=32, seed=0, dtype=None):
+    return ResNet50(num_classes=num_classes, norm_type=norm_type,
                     passport_kwargs=passport_kwargs, private=True,
                     imagenet=imagenet, input_size=input_size, seed=seed,
                     dtype=dtype)

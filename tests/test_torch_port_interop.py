@@ -446,8 +446,8 @@ def test_torchvision_import_matches_jax_at_224(tmp_path, arch):
     np.testing.assert_allclose(got, want, **LOGITS_TOL)
     if arch == "resnet18":
         assert tuple(taps["layer4"]) == (2, 512, 7, 7)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        torchvision_import.import_torchvision(sd, pmodel, "resnet50")
+    with pytest.raises(ValueError, match="unsupported torchvision arch"):
+        torchvision_import.import_torchvision(sd, pmodel, "vgg16")
 
 
 # --------------------------------------------------------- load sites
