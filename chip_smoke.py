@@ -103,6 +103,20 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
     hand-built torchvision ResNet-34 and ResNet-50 at 224 px card vs CPU;
     an ImageNet ResNet50Private private forward at 224 px (K2 at 14x14 and
     7x7) in f32 and bf16.
+16. The licensing and dispute workflow (``deploy``), through the CLIs:
+    ``cli.train_ensemble`` trains a fleet of two ResNet18Private V2
+    licensees signed "Alice" and "Bob" (passports from phase 7's scheme-0
+    last.ckpt, ``--epoch-scan``, batch 256 over 12,800 images) until each
+    member's detection reads 1.0; ``cli.verify_ownership`` verifies member
+    0 with ``--commit`` and ``--check-commitment`` (the record also on the
+    CPU) and refuses member 1's passports and member 1's record;
+    ``cli.export_deployment``'s artifact against the folded Predictor;
+    ``cli.export_torch_checkpoint``'s .pth read back and verified;
+    ``cli.serve_http`` in a thread, folded on member 0 and on AlexNet V1's
+    best.ckpt ``--no-folded --no-private`` (K2 in every request), each
+    answer against an in-process Predictor, 8 concurrent requests, the
+    error codes and the median ``latency_ms`` of each bucket. K2 f32
+    launches counted over the phase.
 
 Each phase's wall time is printed on a line of its own.
 
@@ -146,6 +160,9 @@ CHECK_SHAPES = [MAIN_SHAPE, (1, 512, 4, 4), (1024, 512, 4, 4),
                 # a ragged last tile at 256)
                 (256, 384, 8, 8), (256, 256, 8, 8), (1, 384, 8, 8),
                 (1, 256, 8, 8), (64, 384, 13, 13), (64, 256, 13, 13),
+                # the unfolded AlexNet V1 server's bucket 8 (the deploy
+                # phase's 3- and 8-row and concurrent requests, its warm-up)
+                (8, 384, 8, 8), (8, 256, 8, 8),
                 # ImageNet ResNet18's layer4 at 224 px (interop_path)
                 (64, 512, 7, 7),
                 # ResNet50Private's layer4 (resnet50_passport.json): the
@@ -218,8 +235,12 @@ AUGMENT_SHAPES = [
     ("B=1 15x15 pad 2", (64, 15, 15, 3), 1, 2),
     ("B=13 15x15 pad 2", (64, 15, 15, 3), 13, 2),
 ]
-TIMED_EPOCHS = 3
-PROFILER_ATTEMPTS = 3  # traces taken before a lost kernel record fails
+# timed epochs of the training paths, after one warm-up (ResNet-50's cut
+# from 3 for the deploy phase's time; its epochs agree within 0.2 %)
+TIMED_EPOCHS = {"resnet18": 3, "resnet50": 2}
+# traces taken before a lost kernel record fails (3 until one run on the
+# H100 lost records in three traces in a row: 38, 32 and 46 of 50)
+PROFILER_ATTEMPTS = 6
 ATTACK_BATCH = 64  # the attack CLIs' default --batch-size
 # two train steps on the card against the same two on the CPU: metrics and
 # BN statistics elementwise; each parameter's update (after - before)
@@ -284,8 +305,10 @@ RESNET50_V2 = ["--passport-config", RESNET50_CONFIG, "--key-type", "shuffle",
                "--epoch-scan", "--pallas-input"]
 # V2 epochs until the last epoch's mean train_sign_acc reads 1.0 on the
 # card (the recipe's 200, cut for time): on the H100 the first epoch reads
-# 0.982, the next ones 1.0
-RESNET50_EPOCHS = 3
+# 0.982; 3 sufficed in four runs, but in a fifth (PERF.md section 6)
+# epochs 2 and 3 read 0.9999980 and 0.9999922, a few of an epoch's 563,200
+# bit-steps crossing the sign while the sign loss still falls
+RESNET50_EPOCHS = 5
 CONFIGS = {"alexnet": ALEXNET_CONFIG, "resnet50": RESNET50_CONFIG}
 MODEL_NAMES = {"resnet18": "ResNet18Private", "resnet50": "ResNet50Private"}
 K2_PER_FORWARD = {"alexnet": ALEXNET_K2, "resnet18": RESNET_K2,
@@ -299,6 +322,22 @@ SERVE_BF16_CPU_ROWS = {"resnet18": REQUEST_BATCH, "resnet50": 32}
 # its rounding); no bf16 run, bf16 training being too slow on the CPU
 PARITY_STEPS = {"resnet18": {torch.float32: 2, BF16: 2},
                 "resnet50": {torch.float32: 1}}
+# the licensing and dispute workflow (deploy_path): a fleet of two
+# ResNet18Private V2 licensees through cli.train_ensemble, each signed with
+# its name, trained until each member's detection reads 1.0 (the
+# recipe's 200 epochs cut); logs, checkpoints and records under build/
+DEPLOY_DIR = os.path.join("build", "chip_smoke_deploy")
+DEPLOY_MEMBERS = ("Alice", "Bob")
+# member 0's lowest detection read 0.998 after the first epoch in one run
+# of two on the H100, 1.0 after the second in both (PERF.md section 6); a
+# third for margin
+DEPLOY_EPOCHS = 3
+# rows of the requests each server answers (its buckets 1, 8, 64 and 256,
+# 3 padded to 8), and the requests timed at each bucket for the median
+# latency_ms
+SERVE_ROWS = (1, 3, 8, 64, 256)
+SERVE_TIMED = {1: 20, 8: 20, 64: 10, 256: 5}
+HTTP_TIMEOUT = 120  # seconds: no request of the phase may hang the run
 # the hand-built torchvision files each ResNet's interop phase loads
 TORCHVISION_ARCHS = {"resnet18": ("resnet18",),
                      "resnet50": ("resnet34", "resnet50")}
@@ -1143,7 +1182,7 @@ def train_model(seed: int, device: str, dtype=None, arch: str = "resnet18"):
 def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32,
                arch: str = "resnet18"):
     """bench.py's loop through the port's entry points, in ``dtype`` (K1's
-    output and the model's compute dtype): one warm-up and TIMED_EPOCHS
+    output and the model's compute dtype): one warm-up and TIMED_EPOCHS[arch]
     timed epochs, host-clocked with one read of the epoch's mean metrics at
     its end; img/s from the best timed epoch. Returns the trained model,
     its state, the resident set, the path's launch counts, held-out batches
@@ -1174,7 +1213,7 @@ def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32,
 
     reset()
     history, seconds = [], []
-    for epoch in range(1 + TIMED_EPOCHS):
+    for epoch in range(1 + TIMED_EPOCHS[arch]):
         t = time.perf_counter()
         state, metrics = epoch_fn(state, xs, ys, epoch_key=1000 * seed + epoch)
         values = torch.stack(list(metrics.values())).tolist()  # one sync
@@ -1185,7 +1224,7 @@ def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32,
     counts = launches()
 
     log(f"training-path launches ({dtype}): {counts}")
-    epochs = 1 + TIMED_EPOCHS
+    epochs = 1 + TIMED_EPOCHS[arch]
     if counts[k1] != steps * epochs or sum(counts.values()) != counts[k1]:
         raise AssertionError(f"{k1} launched {counts[k1]} times in {epochs} "
                              f"epochs of {steps} steps; all counts {counts}")
@@ -1200,7 +1239,7 @@ def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32,
     rate = steps * TRAIN_BATCH / best
     log(f"throughput: train {MODEL_NAMES[arch]} V2 batch {TRAIN_BATCH} "
         f"{'bf16' if bf16 else 'f32 (TF32 off)'}, device-resident epoch "
-        f"incl. K1: {rate:.1f} img/s (best of {TIMED_EPOCHS} epochs: "
+        f"incl. K1: {rate:.1f} img/s (best of {TIMED_EPOCHS[arch]} epochs: "
         f"{', '.join(f'{s:.3f}' for s in seconds[1:])} s) [{smi}]")
     log(f"peak device memory, training: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2541,6 +2580,289 @@ def resnet50_attack_steps(best: str, launches, reset) -> dict:
 
 # ----------------------------------------------------------------- main
 
+# -------------------------------------------------------------- deploy
+
+def _http(url: str, obj=None):
+    """(status, JSON body) of a GET (obj None) or a JSON POST to a server
+    of this process."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def fleet_path(pretrained: str, smi: str) -> list:
+    """cli.train_ensemble: ResNet18Private V2, two members signed "Alice"
+    and "Bob", --epoch-scan, batch 256 over 12,800 images, passports from
+    the entry point's scheme-0 last.ckpt; each member's lowest per-layer
+    detection must read 1.0 after the last epoch, and the members'
+    passports differ. Returns the member checkpoints."""
+    from deepipr_tpu_torch.cli import train_ensemble
+    from deepipr_tpu_torch.serve import passports
+    from deepipr_tpu_torch.train.ensemble import member_state
+
+    t = time.perf_counter()
+    run = train_ensemble.main(
+        ["--arch", "resnet", "--members", str(len(DEPLOY_MEMBERS)),
+         "--signatures", ",".join(DEPLOY_MEMBERS), "--epoch-scan",
+         "--batch-size", str(TRAIN_BATCH), "--epochs", str(DEPLOY_EPOCHS),
+         "--passport-config", RESNET_CONFIG, "--pretrained-path", pretrained,
+         "--out", os.path.join(DEPLOY_DIR, "fleet")],
+        synthetic_train=TRAIN_IMAGES)
+    wall = time.perf_counter() - t
+    for i, e in enumerate(run["epochs"], start=1):
+        log(f"fleet epoch {i}: {e['seconds']:.3f} s, "
+            f"{TRAIN_IMAGES / e['seconds']:.1f} img/s per member "
+            f"({len(DEPLOY_MEMBERS)} members), losses {e['loss'].tolist()}, "
+            f"lowest detection {e['sign'].tolist()} [{smi}]")
+    accs = [{k: m[k] for k in ("acc_public", "acc_private")}
+            for m in run["members"]]
+    log(f"cli.train_ensemble: {DEPLOY_EPOCHS} epochs in {wall:.1f} s wall; "
+        f"members {accs}")
+    if not (run["epochs"][-1]["sign"] == 1.0).all():
+        raise AssertionError(f"the fleet's detection is not 1.0 after "
+                             f"{DEPLOY_EPOCHS} epochs: {run['epochs']}")
+    own = [passports(member_state(run["ensemble"], i).model)
+           for i in range(len(DEPLOY_MEMBERS))]
+    if any(torch.equal(own[0][k], own[1][k]) for k in own[0]):
+        raise AssertionError("two members share a passport")
+    return [m["path"] for m in run["members"]]
+
+
+def dispute_path(members: list, smi: str) -> None:
+    """cli.verify_ownership on the fleet: member 0 with --commit --num-chars
+    5 verifies and decodes "Alice" on every layer, member 1 "Bob"; member
+    0 against its record verifies (also on the CPU, from the same
+    checkpoint); member 1's passports claimed for member 0 fail (exit 1),
+    at the CPU's detection rates layer for layer; member 1's record does
+    not hold for member 0.
+
+    A licensee's passports are another shuffle of the same pretrained
+    activations (all non-negative after a ReLU), so a member's derived
+    signs follow its filters more than the shuffle: the claim reads well
+    above a random forgery's 0.5 (0.82-0.91 on the H100, PERF.md section
+    6), and fails only because it is not 1.0."""
+    from deepipr_tpu_torch.cli import verify_ownership
+
+    common = ["--arch", "resnet", "--passport-config", RESNET_CONFIG]
+    recs = [os.path.join(DEPLOY_DIR, f"member_{i}.commit.json")
+            for i in range(len(members))]
+    for i, name in enumerate(DEPLOY_MEMBERS):
+        t = time.perf_counter()
+        res = verify_ownership.main(common + [
+            "--ckpt", members[i], "--commit", recs[i], "--num-chars",
+            str(len(name))])
+        seconds = time.perf_counter() - t
+        if not res["verified"] or set(res["decoded"].values()) != {name}:
+            raise AssertionError(f"member {i} does not verify as {name}: "
+                                 f"{res}")
+        log(f"verify_ownership member {i} --commit --num-chars "
+            f"{len(name)}: exit 0, decoded {set(res['decoded'].values())}, "
+            f"{seconds:.3f} s in-process (build, load, derive, hash) [{smi}]")
+    checks = {
+        "own record": (["--ckpt", members[0], "--check-commitment", recs[0]],
+                       True, True),
+        "member 1's passports claimed": (
+            ["--ckpt", members[0], "--claimed-ckpt", members[1]], False,
+            None),
+        "member 1's record": (["--ckpt", members[0], "--check-commitment",
+                               recs[1]], False, False),
+    }
+    for what, (argv, verified, valid) in checks.items():
+        t = time.perf_counter()
+        res = verify_ownership.main(common + argv)
+        seconds = time.perf_counter() - t
+        if res["verified"] != verified or \
+                res.get("commitment_valid") != valid:
+            raise AssertionError(f"verify_ownership with {what}: {res}")
+        if what.endswith("claimed"):
+            cpu = verify_ownership.main(common + argv, device="cpu")
+            if res["layers"] != cpu["layers"]:
+                raise AssertionError(f"claimed passports: the card's rates "
+                                     f"{res['layers']}, the CPU's "
+                                     f"{cpu['layers']}")
+            log(f"  member 1's passports on member 0, by layer (the CPU's "
+                f"too): {res['layers']}")
+        log(f"verify_ownership member 0, {what}: exit "
+            f"{0 if res['verified'] else 1}, detection "
+            f"{res['detection_rate']:.4f}, commitment_valid "
+            f"{res.get('commitment_valid')}; {seconds:.3f} s [{smi}]")
+    res = verify_ownership.main(common + ["--ckpt", members[0],
+                                          "--check-commitment", recs[0]],
+                                device="cpu")
+    if not (res["verified"] and res["commitment_valid"]):
+        raise AssertionError(f"the card's record does not verify on the "
+                             f"CPU: {res}")
+    log("verify_ownership on the CPU: the card's record verifies")
+
+
+def export_path(members: list) -> None:
+    """cli.export_deployment of member 0 (--ind 0): the artifact holds no
+    passport, signature or BN statistic, and its logits on the card lie
+    within FOLD_TOL of the folded Predictor's; cli.export_torch_checkpoint
+    of member 0: the .pth read back through interop/torch_import detects
+    1.0."""
+    from deepipr_tpu_torch.cli import export_deployment, \
+        export_torch_checkpoint
+    from deepipr_tpu_torch.cli.common import checkpoint_model, passport_kwargs
+    from deepipr_tpu_torch.interop.torch_import import load_torch_checkpoint
+    from deepipr_tpu_torch.models.registry import build_model
+    from deepipr_tpu_torch.serve import Predictor, verify_ownership
+    from deepipr_tpu_torch.utils.checkpoint import load_model
+
+    common = ["--arch", "resnet", "--passport-config", RESNET_CONFIG,
+              "--ckpt", members[0]]
+    artifact = os.path.join(DEPLOY_DIR, "member_0.deploy.ckpt")
+    export_deployment.main(common + ["--ind", "0", "--out", artifact])
+    names = torch.load(artifact, map_location="cpu",
+                       weights_only=True)["model"]
+    secret = [k for k in names if k.rsplit(".", 1)[-1] in (
+        "key", "skey", "b", "running_mean", "running_var")]
+    if secret:
+        raise AssertionError(f"the deployment artifact holds {secret[:4]}")
+    deployed = load_model(artifact, build_model("resnet", 10, "none"))
+    kw = passport_kwargs(RESNET_CONFIG, "bn", "shuffle", 0.1)
+    model = checkpoint_model(members[0], "resnet", 10, "bn", kw, True, 32,
+                             "cuda")
+    x = request_batches(1, 17)[0]["image"]
+    got = Predictor(deployed).logits(x)
+    want = Predictor(model, folded=True, input_shape=(1, 32, 32, 3)).logits(x)
+    torch.testing.assert_close(got, want, **FOLD_TOL)
+    log(f"export_deployment: {len(names)} entries, no secrets; artifact vs "
+        f"folded Predictor on the card, largest error "
+        f"{(got - want).abs().max().item():.3g}")
+
+    pth = os.path.join(DEPLOY_DIR, "member_0.pth")
+    export_torch_checkpoint.main(common + ["--out", pth])
+    fresh = build_model("resnet", 10, passport_kwargs=kw, private=True,
+                        seed=777)
+    load_torch_checkpoint(pth, fresh)
+    verdict = verify_ownership(fresh, (1, 32, 32, 3), private=True)
+    if verdict["detection_rate"] != 1.0:
+        raise AssertionError(f"the exported .pth does not verify: {verdict}")
+    log(f"export_torch_checkpoint: .pth read back detects "
+        f"{verdict['detection_rate']}")
+
+
+def http_path(name: str, argv: list, smi: str) -> dict:
+    """cli.serve_http (``argv``) in a thread of this process: requests of
+    SERVE_ROWS rows in uint8 and normalized, each answer equal to an
+    in-process Predictor's on the same padded batch (and on the unpadded
+    rows); 8 concurrent requests as their serial twins; /healthz, a bad
+    shape (400) and 257 rows (413); then the median latency_ms of each
+    bucket. Returns {bucket: median ms}."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepipr_tpu_torch.cli import serve_http
+    from deepipr_tpu_torch.data.datasets import normalize, synthetic_dataset
+
+    args = serve_http.build_parser().parse_args(argv)
+    t = time.perf_counter()
+    srv = serve_http.make_server(args, port=0)
+    log(f"serve_http {name}: built and warmed in "
+        f"{time.perf_counter() - t:.1f} s")
+    twin = serve_http.build_predictor(args)  # the in-process Predictor
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        code, body = _http(url + "/healthz")
+        if code != 200 or not body["ok"]:
+            raise AssertionError(f"/healthz: {code} {body}")
+        _, _, images, _ = synthetic_dataset(num_train=0, num_test=512,
+                                            seed=23)
+        for rows in SERVE_ROWS:
+            x = images[:rows]
+            bucket = next(s for s in srv.batch_sizes if s >= rows)
+            padded = np.zeros((bucket, 32, 32, 3), np.float32)
+            padded[:rows] = normalize(x)
+            want = twin.predict(padded)[:rows].tolist()
+            alone = twin.predict(normalize(x)).tolist()
+            for form, obj in (("uint8", {"images": x.tolist()}),
+                              ("normalized",
+                               {"images": normalize(x).tolist()})):
+                code, body = _http(url + "/predict", obj)
+                if code != 200 or body["classes"] != want:
+                    raise AssertionError(f"{name}: {rows} rows {form}: "
+                                         f"{code}, not the Predictor's")
+            log(f"serve_http {name}: {rows} rows (bucket {bucket}) uint8 "
+                f"and normalized equal the in-process Predictor's; "
+                f"{sum(a != b for a, b in zip(want, alone))} rows differ "
+                f"from it unpadded")
+        batches = [images[8 * i:8 * i + n].tolist()
+                   for i, n in enumerate(range(1, 9))]
+        serial = [_http(url + "/predict", {"images": b})[1]["classes"]
+                  for b in batches]
+        with ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(
+                lambda b: _http(url + "/predict", {"images": b}), batches))
+        if [a[1].get("classes") for a in answers] != serial:
+            raise AssertionError(f"{name}: concurrent answers differ from "
+                                 "their serial twins")
+        for obj, status in (({"images": np.zeros((2, 5, 5, 3)).tolist()},
+                             400),
+                            ({"images": np.zeros((257, 2, 2, 3)).tolist()},
+                             413)):
+            code, body = _http(url + "/predict", obj)
+            if code != status:
+                raise AssertionError(f"{name}: {code} {body}, expected "
+                                     f"{status}")
+        medians = {}
+        for bucket, reps in SERVE_TIMED.items():
+            obj = {"images": images[:bucket].tolist()}
+            ms = [_http(url + "/predict", obj)[1]["latency_ms"]
+                  for _ in range(reps)]
+            medians[bucket] = statistics.median(ms)
+        log(f"serve_http {name}: 8 concurrent requests as their serial "
+            f"twins; /healthz, 400, 413; median latency_ms by bucket "
+            f"{medians} (requests by bucket {SERVE_TIMED}) [{smi}]")
+        return medians
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=HTTP_TIMEOUT)
+
+
+def deploy_path(pretrained: str, alexnet_v1: str, smi: str, launches,
+                reset) -> dict:
+    """The licensing and dispute workflow through its CLIs: the fleet
+    (``fleet_path``), verification and commitments (``dispute_path``), the
+    deployment artifact and the .pth (``export_path``), and two servers
+    (``http_path``): member 0 folded, and AlexNet V1's best.ckpt
+    ``--no-folded --no-private``, whose every request runs K2. Returns the
+    phase's launch counts (K2 f32 in the signature rows, the dual evals,
+    verification, the commitments and V1 serving)."""
+    import shutil
+
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    os.makedirs(DEPLOY_DIR)
+    reset()
+    members = fleet_path(pretrained, smi)
+    dispute_path(members, smi)
+    export_path(members)
+    folded = http_path("folded ResNet18Private member 0", [
+        "--ckpt", members[0], "--arch", "resnet", "--passport-config",
+        RESNET_CONFIG], smi)
+    before = launches()["passport_epilogue"]
+    v1 = http_path("AlexNet V1 --no-folded --no-private", [
+        "--ckpt", alexnet_v1, "--arch", "alexnet", "--passport-config",
+        ALEXNET_CONFIG, "--no-folded", "--no-private"], smi)
+    counts = launches()
+    if counts["passport_epilogue"] == before:
+        raise AssertionError("the unfolded V1 server launched no K2")
+    log(f"deploy: launches {counts}; median latency_ms folded {folded}, "
+        f"V1 unfolded {v1} [{smi}]")
+    return counts
+
+
 def shape_key(shape, relu: bool = True) -> str:
     return "x".join(map(str, shape)) + ("" if relu else " relu off")
 
@@ -2672,6 +2994,10 @@ def main() -> int:
     with phase("interop"):
         paths["interop"] = interop_path(best, args.seed, smi, launches,
                                         reset)
+    with phase("deploy"):
+        paths["deploy"] = deploy_path(
+            os.path.join(CLI_LOGDIR, "resnet_synthetic_v0", "1", "models",
+                         "last.ckpt"), alexnet_best[1], smi, launches, reset)
 
     with phase("resnet50_serve"):
         paths.update(resnet_serve(args.seed, smi, launches, reset,
@@ -2692,6 +3018,7 @@ def main() -> int:
     # the ImageNet ResNet forwards; K2-bwd in the ResNet-50 attack steps
     both = ("passport_epilogue", "passport_epilogue_bf16")
     for name, forms in (("transfer", ("passport_epilogue",)),
+                        ("deploy", ("passport_epilogue",)),
                         ("fold", both), ("interop", both),
                         ("resnet50_fold", both), ("resnet50_interop", both),
                         ("resnet50_attack_steps",

@@ -24,7 +24,7 @@ from deepipr_tpu_torch.interop.surgery import copy_matching
 from deepipr_tpu_torch.interop.torch_import import load_torch_checkpoint
 from deepipr_tpu_torch.models.registry import build_model
 from deepipr_tpu_torch.train.state import TrainState
-from deepipr_tpu_torch.utils.checkpoint import load_state
+from deepipr_tpu_torch.utils.checkpoint import has_separate_stats, load_state
 from deepipr_tpu_torch.utils.config import (
     construct_passport_kwargs,
     mark_separate_stats,
@@ -71,13 +71,6 @@ def nclass_for(dataset: str) -> int:
     return {"cifar100": 100, "imagenet1000": 1000}.get(dataset, 10)
 
 
-def _ckpt_has_separate_stats(path: str) -> bool:
-    """Whether a port checkpoint carries per-branch BN stats
-    ('bn_private'), read from its state-dict names."""
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    return any(".bn_private." in k for k in data["model"])
-
-
 def _mark_learnable(passport_kwargs: Dict):
     for v in passport_kwargs.values():
         if isinstance(v, dict) and "flag" in v:
@@ -109,7 +102,7 @@ def load_attacked_model(args, learnable_affine: bool = False,
     separate = bool(getattr(args, "separate_stats", False))
     # a reference file has no per-branch BN statistics
     if args.loadpath and not torch_file and not separate and \
-            _ckpt_has_separate_stats(args.loadpath):
+            has_separate_stats(args.loadpath):
         # loading a separate-stats checkpoint into a shared-stats template
         # would fail on the private branch's running stats — enable instead
         print("NOTE: checkpoint carries per-branch BN stats (bn_private); "

@@ -63,6 +63,13 @@ def save_state(path: str, state: TrainState) -> None:
     _write(path, snapshot(state))
 
 
+def save_model(path: str, model: torch.nn.Module) -> None:
+    """The model's ``state_dict`` alone (no optimizer, no step), written as
+    ``save_state`` writes: the deployment artifact's format
+    (cli/export_deployment.py), read back by ``load_model``."""
+    _write(path, _to_cpu({"model": model.state_dict()}))
+
+
 class AsyncCheckpointer:
     """Overlap the disk write of a checkpoint with the next epoch's work.
 
@@ -130,6 +137,23 @@ def load_model_entries(model: torch.nn.Module,
               f"entr{'y' if len(dropped) == 1 else 'ies'} not in the "
               f"template: {dropped[:6]}{' ...' if len(dropped) > 6 else ''}")
     model.load_state_dict({k: entries[k] for k in own}, strict=True)
+
+
+def has_separate_stats(path: str) -> bool:
+    """Whether a port checkpoint carries per-branch BN statistics
+    ('bn_private'), read from its state-dict names."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    return any(".bn_private." in k for k in data["model"])
+
+
+def load_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Restore the model entries of a checkpoint (``save_state``'s or
+    ``save_model``'s) into ``model``, in place, as ``load_state`` does with
+    restore_opt=False, and return it."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    load_model_entries(model, data["model"], f"checkpoint {path}",
+                       "load_model")
+    return model
 
 
 def load_state(path: str, template: TrainState,
