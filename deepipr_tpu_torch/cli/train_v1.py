@@ -8,9 +8,11 @@ synthetic, --data-root, --seed, --logdir and the rest). It runs on the CUDA
 card. ``--transfer-learning`` fine-tunes the --pretrained-path checkpoint
 on --tl-dataset and records signature survival (train/transfer.py);
 --pretrained-path takes a port checkpoint or a reference or torchvision
-.pth/.pt. Flags of paths the port has not reached raise
-NotImplementedError naming their ROADMAP item: --multihost, --download,
-and the Caltech and ImageNet datasets.
+.pth/.pt. ``--dataset caltech-101/caltech-256`` reads class folders (or
+the reference's archive) under ``--data-root``/<dataset>, and
+``--dataset imagenet1000`` streams ``--data-root``/ILSVRC2012/{train,val}.
+--multihost (ROADMAP queue 1, item 1) and --download (the port reads local
+files only) raise NotImplementedError.
 """
 
 import argparse
@@ -58,21 +60,21 @@ def build_parser():
     p.add_argument("--data-root", default="data")
     p.add_argument("--caltech-split", default="shuffled",
                    choices=["shuffled", "reference"],
-                   help="Caltech 80/20 per-class split (Caltech is not "
-                        "ported yet)")
+                   help="Caltech 80/20 per-class split: shuffled per "
+                        "class from a fixed seed, or the reference's first "
+                        "80 %% in sorted file order")
     p.add_argument("--download", action="store_true", default=False,
                    help="refused: the port reads local files only")
     p.add_argument("--logdir", default="logs")
     p.add_argument("--workers", type=int, default=16,
-                   help="decode threads for the streaming ImageNet loader "
-                        "(ImageNet is not ported yet)")
+                   help="decode threads for the streaming ImageNet loader")
     p.add_argument("--no-draft", dest="draft", action="store_false",
                    default=True,
                    help="disable JPEG draft decode in the streaming loader "
-                        "(ImageNet is not ported yet)")
+                        "(decode at full size before the resize)")
     p.add_argument("--imagenet-cache",
                    help="directory for the resized-uint8 ImageNet decode "
-                        "cache (ImageNet is not ported yet)")
+                        "cache (one tree per draft mode and decode size)")
 
     # misc
     p.add_argument("--multihost", action="store_true", default=False,
@@ -85,7 +87,8 @@ def build_parser():
                    help="run crop/flip/normalize on the card inside the "
                         "train step (kernel K1; the host ships raw uint8 "
                         "batches; V3 triggers are normalized and appended "
-                        "on the card)")
+                        "on the card; ImageNet is cropped and flipped on "
+                        "the host and only normalized by K1)")
     p.add_argument("--epoch-scan", action="store_true", default=False,
                    help="device-resident training: park the dataset on the "
                         "card and run each epoch with kernel K1 in every "

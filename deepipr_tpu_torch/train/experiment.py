@@ -13,18 +13,23 @@ device:
   last checkpoints; V2/V3 select the best on (acc_public + acc_private)/2
   (classification_private.py:151), schemes 0/1 on valid accuracy.
 
-Training paths: the host per-step path (batches augmented on the host, one
-synchronous step each), ``--device-augment`` (raw uint8 batches, kernel K1
-in every step) and ``--epoch-scan`` (the set resident on the device, K1 in
-every step, one host read per epoch). ``--bf16`` makes the model's compute
-dtype bf16 and K1 write bf16. ``--transfer-learning`` loads the attacked
-checkpoint (``--pretrained-path``) and keeps the host path without the
-random crop; ``train/transfer.py`` runs it. ``--pretrained-path`` takes a
-port checkpoint or a reference or torchvision ``.pth``/``.pt``
-(interop/torchvision_import.py).
+Training paths: the host per-step path (batches augmented on the host and
+moved to the device by a producer thread, ``data/prefetch.py``, one step
+each), ``--device-augment`` (raw uint8 batches, kernel K1 in every step)
+and ``--epoch-scan`` (the set resident on the device, K1 in every step, one
+host read per epoch). ImageNet is streamed from its class folders and
+keeps the per-step path; under ``--device-augment`` its batches are
+cropped and flipped on the host and K1 only normalizes them (pad 0, zero
+draws: the JAX package's ``normalize_device``). ``--bf16`` makes the
+model's compute dtype bf16 and K1 write bf16. ``--transfer-learning``
+loads the attacked checkpoint (``--pretrained-path``) and keeps the host
+path without the random crop; ``train/transfer.py`` runs it.
+``--pretrained-path`` takes a port checkpoint or a reference or
+torchvision ``.pth``/``.pt`` (interop/torchvision_import.py).
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the Caltech and ImageNet datasets, ``--multihost`` and ``--download``.
+Not ported (each raises ``NotImplementedError``): ``--multihost``
+(ROADMAP queue 1, item 1) and ``--download`` (the port reads local files
+only).
 """
 
 from __future__ import annotations
@@ -38,12 +43,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from deepipr_tpu_torch.data.acquire import DOWNLOAD_REFUSED
 from deepipr_tpu_torch.data.datasets import (
     CyclingIterator,
     DataLoader,
     prepare_dataset,
     prepare_wm,
 )
+from deepipr_tpu_torch.data.prefetch import prefetch
 from deepipr_tpu_torch.interop.torchvision_import import load_torch_pretrained
 from deepipr_tpu_torch.models.registry import NUM_CLASSES, build_model
 from deepipr_tpu_torch.serve import passports
@@ -58,6 +65,7 @@ from deepipr_tpu_torch.train.steps import (
     make_train_step,
     run_dual_eval,
     run_eval,
+    zero_draws,
 )
 from deepipr_tpu_torch.utils.checkpoint import (
     AsyncCheckpointer,
@@ -112,8 +120,7 @@ def _unported(args: Dict) -> None:
     reasons = {
         "multihost": "--multihost is not ported yet (ROADMAP queue 1, item "
                      "1: DDP and mesh training, multihost)",
-        "download": "--download is refused: the port reads datasets from "
-                    "local files only and needs no network",
+        "download": DOWNLOAD_REFUSED,
     }
     for flag, reason in reasons.items():
         if args.get(flag):
@@ -213,6 +220,7 @@ class ClassificationExperiment(Experiment):
         self.private = self.scheme in (2, 3)
         self.dtype = torch.bfloat16 if self.args.get("bf16") else None
         self.out_dtype = self.dtype or torch.float32
+        self.imagenet = self.dataset == "imagenet1000"
         self.pad = int((4 / 32) * self.imgcrop)
         if self.is_tl:
             # TL drops the random crop: it keeps the host per-step path
@@ -222,8 +230,16 @@ class ClassificationExperiment(Experiment):
                     print(f"WARNING: --{flag.replace('_', '-')} ignored for "
                           "transfer learning; using the host path")
                     self.args[flag] = False
+        elif self.imagenet and self.args.get("epoch_scan"):
+            # streamed, never resident (JAX experiment.py:215-219)
+            print("WARNING: --epoch-scan ignored for this scheme/dataset "
+                  "(TL and streaming ImageNet keep the per-step path)")
+            self.args["epoch_scan"] = False
         self.device_augment = bool(self.args.get("device_augment"))
         self.epoch_scan = bool(self.args.get("epoch_scan"))
+        # the last host-fed epoch's producer seconds per batch
+        # (data/prefetch.py)
+        self.prefetch_stats: Dict = {}
 
         self.train_data, self.valid_data = prepare_dataset(self.args)
         trigger_path = self.args.get("trigger_path", "data/trigger_set/pics")
@@ -286,10 +302,15 @@ class ClassificationExperiment(Experiment):
             print(f"Resumed full train state from {self.args['resume']} "
                   f"(step {self.state.step})")
 
+        # ImageNet's stream is cropped and flipped on the host: K1 at pad 0
+        # with zero draws only normalizes (JAX experiment.py:194-205)
+        pad = self.pad if self.device_augment else None
+        draws = None
+        if self.device_augment and self.imagenet:
+            pad, draws = 0, zero_draws(self.device)
         self.train_step = make_train_step(
-            self.model, private=self.private,
-            pad=self.pad if self.device_augment else None, seed=self.seed,
-            out_dtype=self.out_dtype, device=self.device)
+            self.model, private=self.private, pad=pad, seed=self.seed,
+            draws=draws, out_dtype=self.out_dtype, device=self.device)
         self.epoch_fn = None
         if self.epoch_scan:
             self._wm_batch = 2  # the reference's trigger batch (dataset.py:188-191)
@@ -405,8 +426,13 @@ class ClassificationExperiment(Experiment):
             if self._resident_wm:
                 images += steps * self._wm_batch
         else:
+            # a producer thread makes and moves the next batches while the
+            # step runs (JAX experiment.py:522)
             sums, count, images = None, 0, 0
-            for batch in self._batches():
+            self.prefetch_stats = {}
+            for batch in prefetch(self._batches(), size=2,
+                                  device=self.device,
+                                  stats=self.prefetch_stats):
                 images += len(batch["label"]) + len(batch.get("wm_label", ()))
                 self.state, metrics = self.train_step(self.state, batch)
                 count += 1

@@ -94,6 +94,18 @@ def seeded_draws(seed: int, pad: int, device: torch.device) -> DrawFn:
     return draws
 
 
+def zero_draws(device: torch.device) -> DrawFn:
+    """draws(step, n) -> all-zero (oy, ox, flip) on ``device``: with pad 0,
+    kernel K1 then only normalizes (the JAX package's ``normalize_device``,
+    the ImageNet stream's device transform)."""
+
+    def draws(step: int, n: int) -> Draws:
+        zeros = torch.zeros(n, dtype=torch.int32, device=device)
+        return zeros, zeros, zeros
+
+    return draws
+
+
 def seeded_dropout(seed: int, device: torch.device) -> DropoutFn:
     """dropout(step, shapes) -> keep masks (each unit kept with
     probability DROPOUT_KEEP) on ``device``, a function of (seed, step)
@@ -128,6 +140,9 @@ def make_train_step(model, private: bool, split_branches: bool = True,
     tensors: 'loss' (the CE part), 'sign_loss', 'sign_acc', and 'acc' or
     'acc_public'/'acc_private'.
 
+    The batch's arrays may be NumPy or tensors already on ``device`` (the
+    prefetcher's, data/prefetch.py), which are used without a copy.
+
     pad=None: ``batch["image"]`` is a normalized NHWC float batch. pad=int:
     it is raw uint8 NHWC, either the batch or, with ``batch["index"]``, the
     set the batch's rows are gathered from; kernel K1
@@ -135,7 +150,8 @@ def make_train_step(model, private: bool, split_branches: bool = True,
     normalizes in one launch, writing ``out_dtype`` (f32, or bf16 for a
     bf16 model, the JAX epoch's ``out_dtype``). Its draws come from
     ``draws(state.step, n)``, by default ``seeded_draws(seed, pad,
-    device)``; tests inject JAX's. V3: ``batch["wm_image"]`` (uint8) is
+    device)``; tests inject JAX's; ``zero_draws`` with pad 0 normalizes
+    only. V3: ``batch["wm_image"]`` (uint8) is
     normalized only, in the same dtype, and appended, with
     ``batch["wm_label"]``. ``batch["weight"]``: optional per-sample loss
     weights. The loss, the sign loss and the metrics are f32 whatever the
@@ -216,7 +232,8 @@ def make_train_step(model, private: bool, split_branches: bool = True,
 
         if fork is not None:
             fork_name, _ = fork
-            torch._foreach_copy_(snapshot, prefix_bufs)
+            if prefix_bufs:  # none under the gn, in and none norm types
+                torch._foreach_copy_(snapshot, prefix_bufs)
             out0 = model(x, ind=0, tap_at=fork_name, **fwd)
             out1 = model(out0.tap, ind=1, start_at=fork_name, **fwd)
         elif private:
@@ -234,7 +251,7 @@ def make_train_step(model, private: bool, split_branches: bool = True,
             metrics = {"acc_public": top1_accuracy(out0.logits, y, w),
                        "acc_private": top1_accuracy(out1.logits, y, w)}
         (ce + sl).backward()
-        if fork is not None:
+        if prefix_bufs:
             with torch.no_grad():
                 moved = torch._foreach_sub(prefix_bufs, snapshot)
                 torch._foreach_add_(prefix_bufs, moved, alpha=BN_MOMENTUM)

@@ -492,3 +492,64 @@ def test_split_private_train_step_matches_cpu(cuda):
     for name, t in gpu_model.state_dict().items():
         torch.testing.assert_close(t.cpu(), want[name], rtol=1e-3, atol=1e-4,
                                    msg=name)
+
+
+# K1 at 224 px, where an image takes 4 tiles of 56 rows (a 672-byte source
+# row, 73 rows in the shared memory): the ImageNet stream's normalize (pad
+# 0, zero draws), every extreme draw at pad 28 (a tile's source rows offset
+# by the crop), and 223x223 (669-byte rows: byte loads, scalar stores)
+K1_224_CASES = {"224_pad0_zero_draws": (224, 16, 0, "zero"),
+                "224_pad28_extremes": (224, 16, 28, "extremes"),
+                "223_pad28": (223, 8, 28, "random")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(K1_224_CASES))
+def test_augment_kernel_at_224_matches_plain_version(cuda, case, dtype):
+    side, b, pad, kind = K1_224_CASES[case]
+    rng = np.random.default_rng(side)
+    ds = torch.from_numpy(rng.integers(0, 256, (24, side, side, 3),
+                                       dtype=np.uint8)).to(cuda)
+    gen = torch.Generator().manual_seed(b)
+    idx = torch.randperm(ds.shape[0], generator=gen)[:b].int().to(cuda)
+    draws = {"zero": lambda: (torch.zeros(b, dtype=torch.int32),) * 3,
+             "extremes": lambda: _extremes(pad),
+             "random": lambda: draw_augment(gen, b, pad)}[kind]()
+    draws = tuple(t.to(cuda) for t in draws)
+    for stats, tol in (((torch.zeros(3, device=cuda),
+                         torch.ones(3, device=cuda)), None),
+                       (scaled_stats(device=cuda), dict(rtol=0, atol=3e-7))):
+        got = fused_augment(ds, idx, *draws, *stats, pad, dtype)
+        torch.cuda.synchronize()
+        want = augment_reference(ds[idx.long()], *draws, pad, *stats, dtype)
+        assert got.dtype == dtype and got.shape == (b, 3, side, side)
+        if tol is None or dtype == torch.bfloat16:  # bit for bit
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+def test_prefetch_onto_the_card_equals_a_hand_moved_batch(cuda):
+    """Batches through pinned buffers and the side stream equal the same
+    arrays moved by hand, with work queued on the consumer's stream
+    between reads and more batches than the ring has slots."""
+    from deepipr_tpu_torch.data.prefetch import prefetch
+
+    rng = np.random.default_rng(3)
+    batches = [{"image": rng.integers(0, 256, (8, 32, 32, 3),
+                                      dtype=np.uint8),
+                "label": rng.integers(0, 10, 8).astype(np.int32),
+                "weight": rng.random(8).astype(np.float32)}
+               for _ in range(9)]
+    seen = 0
+    for got, want in zip(prefetch(iter(batches), size=2, device=cuda),
+                         batches):
+        for k, v in want.items():
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k], torch.as_tensor(v).to(cuda)), k
+        torch.cuda._sleep(100_000)  # the step keeps the stream busy
+        seen += 1
+    assert seen == len(batches)

@@ -372,7 +372,7 @@ def test_backward_geometry_at_the_main_shape():
 # ------------------------------------------------------------------ K1
 
 AUGMENT_SHAPES = sorted({(b, s[1], s[2], s[3])
-                         for _, s, b, _ in SMOKE.AUGMENT_SHAPES} | {
+                         for _, s, b, *_ in SMOKE.AUGMENT_SHAPES} | {
     (2, 224, 224, 3), (3, 7, 5, 1), (1, 33, 33, 3), (2, 15, 15, 3),
     (4, 8, 8, 16), (1, 1, 1, 1), (2, 100, 400, 3)})
 

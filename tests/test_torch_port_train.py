@@ -201,25 +201,31 @@ def test_train_mode_block_matches_jax(case):
 # -------------------------------------------------- train steps vs JAX
 
 STEP_CASES = {
-    # name: (passport config or None, private, split_branches)
+    # name: (passport config or None, private, split_branches[, norm_type])
     "split_private": ("resnet9_passport.json", True, True),
     "nonsplit_private": ("resnet9_passport.json", True, False),
     "v1": ("resnet9_passport.json", False, True),
     "scheme0": (None, False, True),
+    # norm types without BN: the split step's shared prefix then keeps no
+    # running statistics to step again (W15)
+    "split_private_gn": ("resnet9_passport.json", True, True, "gn"),
+    "split_private_in": ("resnet9_passport.json", True, True, "in"),
+    "split_private_none": ("resnet9_passport.json", True, True, "none"),
 }
 
 
-def _pair(config, private):
+def _pair(config, private, norm="bn"):
     kw = None
     if config is not None:
         kw, _ = construct_passport_kwargs(
-            load_passport_config(str(CONFIGS / config)), "bn", "random", 0.1)
+            load_passport_config(str(CONFIGS / config)), norm, "random", 0.1)
     make = jax_resnet.ResNet9
-    jmodel = make(num_classes=10, passport_kwargs=kw, private=private)
+    jmodel = make(num_classes=10, norm_type=norm, passport_kwargs=kw,
+                  private=private)
     v = numpy_variables(jmodel.init(RNGS, jnp.zeros((2, SIDE, SIDE, 3)),
                                     train=True), seed=0)
-    pmodel = build_model("resnet9", 10, passport_kwargs=kw, private=private,
-                         input_size=SIDE, device="cpu")
+    pmodel = build_model("resnet9", 10, norm_type=norm, passport_kwargs=kw,
+                         private=private, input_size=SIDE, device="cpu")
     load_jax_variables(pmodel, v)
     return jmodel, v, pmodel
 
@@ -243,8 +249,8 @@ def jax_draws(step, n):
 
 
 def _run_both(case):
-    config, private, split = STEP_CASES[case]
-    jmodel, v, pmodel = _pair(config, private)
+    config, private, split, *norm = STEP_CASES[case]
+    jmodel, v, pmodel = _pair(config, private, *norm)
     jstep = jax_train_step(jmodel, private, split_branches=split,
                            device_augment=make_device_augment(PAD))
     jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, v), jax_sgd(LR))
