@@ -42,12 +42,16 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
    ``--eval`` of that run, ``verify_ownership`` of its best.ckpt loaded into
    a fresh model, and one V3 epoch. Logdirs under ``build/``.
 8. The attack suite, in-process, on that V2 run's best.ckpt (f32): the
-   pruning and flip CLIs (11 levels), attack 1 (8 reps), attack 2, attack 3
-   host-fed and ``--epoch-scan``, and the forge attack, with launch counts
-   (K2 f32, K2-bwd, K1 f32; no bf16 form) and each attack's wall time; K2
-   and K2-bwd launches per ambiguity step; the CE and sign-loss gradient on
-   every fake passport; one ambiguity step and one forge step on the card
-   against the CPU. CSVs under ``logs/``.
+   attack grid through ``cli.robustness_grid`` at cut depths (attack 1 with
+   8 reps, pruning and flip at 11 levels, attacks 2 and 3 ``--epoch-scan``
+   for 1 epoch at flipperc 0, 0.1, 0.25 and 0.5, the forge at those four
+   fractions for 100 steps; CSVs under ``build/chip_smoke_grid/logs/``),
+   then attack 3 host-fed, with launch counts (K2 f32, K2-bwd, K1 f32 each
+   on the grid; no bf16 form) and each step's wall time; the unchanged
+   ``tools/collect_robustness.py`` on the grid's CSVs, every section with
+   its rows and the card's backend stamp; K2 and K2-bwd launches per
+   ambiguity step; the CE and sign-loss gradient on every fake passport;
+   one ambiguity step and one forge step on the card against the CPU.
 9. AlexNet serving (``alexnet_serve``): V1 and V2 AlexNet at CIFAR-10 width
    (passport_configs/alexnet_passport.json: features_4-6, K2 at
    (N,384,8,8) and (N,256,8,8)) from ``--seed``, f32 and bf16, through
@@ -309,7 +313,17 @@ BF16_LOGITS_NORM_TOL = 5e-2
 BF16_FORGED_TOL = 8 / 512
 # the entry point: the JAX package's CLIs' flags on the port's, logdirs
 # under build/ (ignored by git); bench.py's 12,800 images per epoch
+REPO = os.path.dirname(os.path.abspath(__file__))
 CLI_LOGDIR = os.path.join("build", "chip_smoke_logs")
+# the attack grid (cli/robustness_grid.py) at cut depths: 8 attack-1 reps,
+# 1 epoch of attacks 2 and 3 at each flipperc, 100 forge steps; run from
+# its own directory, which the collector reads, and the collector's
+# sections with their tables' rows at those depths
+GRID_DIR = os.path.join("build", "chip_smoke_grid")
+GRID_TAG = "200"
+GRID_DEPTHS = {"attack_rep": 8, "epochs": 1, "steps": 100}
+GRID_SECTIONS = {"Attack 1": 3, "Pruning attack": 11, "Sign-flip attack": 11,
+                 "Attack 2": 4, "Attack 3": 4, "Forge attack": 4}
 CLI_COMMON = ["--arch", "resnet", "--dataset", "synthetic",
               "--batch-size", str(TRAIN_BATCH), "--logdir", CLI_LOGDIR]
 CLI_V2 = ["--passport-config", "passport_configs/resnet18_passport.json",
@@ -1573,34 +1587,91 @@ def attack_argv(best: str) -> list:
             "--loadpath", best]
 
 
+def collected_sections(markdown: str) -> dict:
+    """{model: {section: {"heading", "header", "rows", "source"}}} of
+    tools/collect_robustness.py's output: each section's heading, its
+    table's header, the count of its table's rows and its source line.
+    A record of one model has no model line; its sections are under
+    None."""
+    out, model, title = {None: {}}, None, None
+    for line in markdown.splitlines()[1:]:  # past the record's title
+        if line.startswith("# "):
+            model, title = line[2:], None
+            out[model] = {}
+        elif line.startswith("## "):
+            title = line[3:].split(" — ")[0].split(" (")[0]
+            out[model][title] = {"heading": line[3:], "header": None,
+                                 "rows": 0, "source": ""}
+        elif title and line.startswith("|") and not line.startswith("|-"):
+            entry = out[model][title]
+            if entry["header"] is None:
+                entry["header"] = line
+            else:
+                entry["rows"] += 1
+        elif title and line.startswith("Source"):
+            out[model][title]["source"] = line
+    return out
+
+
+def collect_robustness(root: str, expnames, tag: str, out: str) -> dict:
+    """Run the unchanged tools/collect_robustness.py from ``root`` (where
+    ``logs/`` holds the CSVs) on ``expnames``; returns
+    ``collected_sections`` of the record it wrote to ``out``."""
+    cmd = [sys.executable, os.path.join(REPO, "tools",
+                                        "collect_robustness.py"),
+           "--tag", tag, "--out", out]
+    for name in expnames:
+        cmd += ["--expname", name]
+    subprocess.run(cmd, cwd=root, check=True, capture_output=True,
+                   timeout=120)
+    with open(os.path.join(root, out)) as f:
+        return collected_sections(f.read())
+
+
 def attack_path(best: str, smi: str, launches, reset) -> dict:
-    """The six attack CLIs in-process on the card, on the V2 run's best.ckpt
-    (f32 weights in an f32 model), on that run's synthetic set (12,800
-    train, 512 validation images), batch 64. Returns the path's launch
+    """The attack grid (cli/robustness_grid.py, the six attack CLIs
+    in-process) on the card, on the V2 run's best.ckpt (f32 weights in an
+    f32 model), on that run's synthetic set (12,800 train, 512 validation
+    images), batch 64, at GRID_DEPTHS; then attack 3 host-fed; then the
+    unchanged collector on the grid's CSVs. Returns the path's launch
     counts."""
-    from deepipr_tpu_torch.cli import (
-        flip_attack,
-        passport_attack_1,
-        passport_attack_2,
-        passport_attack_3,
-        passport_forge_attack,
-        pruning_attack,
-    )
+    import shutil
 
-    argv = attack_argv(best)
-    walls = {}
+    from deepipr_tpu_torch.cli import passport_attack_3, robustness_grid
 
-    def run(name, main, *extra):
-        t = time.perf_counter()
-        # the V2 run's synthetic set: its size draws its class templates
-        out = main(argv + list(extra), synthetic_train=TRAIN_IMAGES)
-        walls[name] = time.perf_counter() - t
-        log(f"attack: {name} ({' '.join(extra) or 'defaults'}) in "
-            f"{walls[name]:.1f} s")
-        return out
+    # the collector's layout: the checkpoint under logs/<exp>/<id>/models/
+    # of the grid's own directory, where the attack CLIs write their CSVs
+    shutil.rmtree(GRID_DIR, ignore_errors=True)
+    run = os.path.relpath(best, CLI_LOGDIR).split(os.sep)
+    ckpt = os.path.join("logs", *run)
+    os.makedirs(os.path.join(GRID_DIR, os.path.dirname(ckpt)))
+    os.symlink(os.path.abspath(best), os.path.join(GRID_DIR, ckpt))
+    expname = "/".join(run[:2])
+    cfg = os.path.join(REPO, "passport_configs", "resnet18_passport.json")
 
     reset()
-    rows = run("pruning", pruning_attack.main)
+    t = time.perf_counter()
+    with contextlib.chdir(GRID_DIR):
+        # the V2 run's synthetic set: its size draws its class templates
+        records = robustness_grid.main(
+            [ckpt, "resnet18", "2", cfg, GRID_TAG],
+            synthetic_train=TRAIN_IMAGES, **GRID_DEPTHS)
+    grid_wall = time.perf_counter() - t
+    grid = {}
+    for r in records:
+        grid.setdefault(r["module"].rsplit(".", 1)[-1], []).append(r)
+    walls = {name: [round(r["seconds"], 1) for r in rs]
+             for name, rs in grid.items()}
+    grid_launches = {k: sum(r["launches"][k] for r in records)
+                     for k in records[0]["launches"]}
+    log(f"attack grid ({GRID_DEPTHS}) in {grid_wall:.1f} s: wall times "
+        f"{walls} s; launches {grid_launches} [{smi}]")
+    for name, count in grid_launches.items():
+        if not count:
+            raise AssertionError(f"{name} was not launched on the attack "
+                                 f"grid: {grid_launches}")
+
+    rows = grid["pruning_attack"][0]["out"]
     if len(rows) != 11 or rows[0]["detect_mean"] != 1.0:
         raise AssertionError(f"pruning: {len(rows)} rows, detection at 0 % "
                              f"{rows[0]['detect_mean']}")
@@ -1608,7 +1679,7 @@ def attack_path(best: str, smi: str, launches, reset) -> dict:
         f"{[round(r['detect_mean'], 4) for r in rows]}, accuracy "
         f"{[r['acc'] for r in rows]}")
 
-    rows = run("flip", flip_attack.main)
+    rows = grid["flip_attack"][0]["out"]
     detect = {k: v for k, v in rows[0].items() if k.startswith("detect_")}
     if len(rows) != 11 or any({k: r[k] for k in detect} != detect
                               for r in rows):
@@ -1620,42 +1691,57 @@ def attack_path(best: str, smi: str, launches, reset) -> dict:
     log(f"  flip: detection {rows[0]['detect_mean']} at every level; "
         f"accuracy {[r['acc'] for r in rows]}")
 
-    rows = run("attack 1", passport_attack_1.main, "--attack-rep", "8")
+    rows = grid["passport_attack_1"][0]["out"]
     genuine = rows[0]["valid_acc"]
     fake = float(np.mean([r["valid_acc"] for r in rows[1:]]))
     if rows[0]["attack_rep"] != -1 or not fake < genuine:
         raise AssertionError(f"attack 1: fake mean {fake} vs genuine "
                              f"{genuine}")
-    log(f"  attack 1: genuine {genuine} %, fake mean {fake:.2f} % over 8 "
-        "reps")
+    log(f"  attack 1: genuine {genuine} %, fake mean {fake:.2f} % over "
+        f"{len(rows) - 1} reps")
 
-    rows = run("attack 2", passport_attack_2.main, "--flipperc", "0.5",
-               "--epochs", "2")
-    if not all(np.isfinite(v) for r in rows for v in r.values()
-               if isinstance(v, float)):
-        raise AssertionError(f"attack 2: {rows}")
-    log(f"  attack 2: {rows[-1]}")
+    for name in ("passport_attack_2", "passport_attack_3"):
+        for r in grid[name]:
+            if not all(np.isfinite(v) for row in r["out"]
+                       for v in row.values() if isinstance(v, float)):
+                raise AssertionError(f"{name} {r['argv']}: {r['out']}")
+            log(f"  {name} {r['argv'][-4:]}: {r['out'][-1]}")
 
-    for extra in ([], ["--epoch-scan"]):
-        rows = run(f"attack 3{' --epoch-scan' if extra else ''}",
-                   passport_attack_3.main, "--flipperc", "0.1", "--epochs",
-                   "2", *extra)
-        if not all(np.isfinite(v) for r in rows for v in r.values()
-                   if isinstance(v, float)):
-            raise AssertionError(f"attack 3: {rows}")
-        log(f"  attack 3{' --epoch-scan' if extra else ''}: {rows[-1]}")
-
-    forged, hists = run("forge", passport_forge_attack.main, "--flippercs",
-                        "0,0.5", "--steps", "100")
+    forged, hists = grid["passport_forge_attack"][0]["out"]
     for row, hist in zip(forged, hists):
         if not hist[-1]["mse"] < hist[0]["mse"]:
             raise AssertionError(f"forge {row['flipperc']}: MSE did not "
                                  f"fall: {hist}")
     log(f"  forge: {forged}; MSE by flip fraction "
         f"{[[h['mse'] for h in hist] for hist in hists]}")
+
+    # attack 3 host-fed, at the CLIs' default tag (CSVs under logs/ of the
+    # working directory, apart from the grid's)
+    t = time.perf_counter()
+    rows = passport_attack_3.main(attack_argv(best) + [
+        "--flipperc", "0.1", "--epochs", "1"], synthetic_train=TRAIN_IMAGES)
+    if not all(np.isfinite(v) for r in rows for v in r.values()
+               if isinstance(v, float)):
+        raise AssertionError(f"attack 3: {rows}")
+    log(f"  attack 3 host-fed, 1 epoch, in {time.perf_counter() - t:.1f} s: "
+        f"{rows[-1]}")
     counts = launches()
-    log(f"attack-path launches: {counts}; wall times "
-        f"{ {k: round(v, 1) for k, v in walls.items()} } s [{smi}]")
+
+    backend = f"cuda:{torch.cuda.get_device_name(0)}"
+    sections = collect_robustness(GRID_DIR, [expname], GRID_TAG,
+                                  "ROBUSTNESS_SMOKE.md")[None]
+    got = {title: s["rows"] for title, s in sections.items()}
+    if got != GRID_SECTIONS:
+        raise AssertionError(f"the collector's sections {got}, not "
+                             f"{GRID_SECTIONS}")
+    if f"({GRID_DEPTHS['attack_rep']} reps" not in \
+            sections["Attack 1"]["heading"]:
+        raise AssertionError(f"attack 1: {sections['Attack 1']}")
+    for title, s in sections.items():
+        if f"(backend: {backend})" not in s["source"]:
+            raise AssertionError(f"{title}: {s['source']}")
+    log(f"collector: sections {got}, every source stamped {backend}")
+    log(f"attack-path launches: {counts} [{smi}]")
     for name in ("passport_epilogue", "passport_epilogue_backward",
                  "fused_augment"):
         if not counts[name]:

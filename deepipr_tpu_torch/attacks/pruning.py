@@ -29,15 +29,15 @@ from deepipr_tpu_torch.utils.device import model_device
 def percentile(values: torch.Tensor, perc: float) -> torch.Tensor:
     """``jnp.percentile(values, perc)`` (linear interpolation) of a 1-D f32
     tensor, in its arithmetic: q = f32(perc) / 100 * (n - 1) in f32, then
-    low * (1 - w) + high * w of the sorted values. By sort, since
-    ``torch.quantile`` refuses more than 2**24 elements."""
+    low * (1 - w) + high * w of the order statistics. By selection, since
+    ``torch.quantile`` refuses more than 2**24 elements (and a full sort
+    costs several times as much)."""
     n = values.numel()
     q = np.float32(perc) / np.float32(100.0) * np.float32(n - 1)
-    low, high = int(np.floor(q)), int(np.ceil(q))
-    w = np.float32(q - np.float32(low))
-    ordered = torch.sort(values).values
-    lo_v = ordered[min(max(low, 0), n - 1)]
-    hi_v = ordered[min(max(high, 0), n - 1)]
+    low, high = (min(max(int(f(q)), 0), n - 1) for f in (np.floor, np.ceil))
+    w = np.float32(q - np.float32(np.floor(q)))
+    lo_v = torch.kthvalue(values, low + 1).values
+    hi_v = lo_v if high == low else torch.kthvalue(values, high + 1).values
     return lo_v * float(np.float32(1.0) - w) + hi_v * float(w)
 
 
