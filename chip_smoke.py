@@ -146,6 +146,24 @@ Phases, each of which raises on a failed check (so the exit code is not 0):
     each branch's forward and one train step at batch 32, card vs CPU at
     phase 6's f32 bounds.
 
+19. Multi-process training (``parallel_path``), full width: ResNet18Private
+    V2 f32 as phase 6 trains it, batch 256. (a) Four ``gloo`` ranks on
+    cuda:0 (NCCL refuses two ranks on one GPU) on a 4x1 mesh: two split V2
+    steps and two V3 steps of the mesh epoch (the trigger pair padded to 4
+    at weight 0), K1 on each rank's 64 rows, then each rank's evaluation
+    (K2); held against one process stepping the same global batches with
+    the same draws at phase 6's f32 bounds, the four ranks' states bit for
+    bit, K1 and K2 counted on every rank. (d) The model axis on a 2x2 mesh
+    over gloo: one step of a model-sharded state equal to the replicated
+    step bit for bit, and its multi-process checkpoint round trip. (b) A
+    ``shard_ensemble`` fleet of two on the 2x2 mesh, two steps, each member
+    against itself stepped alone. (c) ``cli.train_v23 --multihost
+    --epoch-scan`` under torchrun with one NCCL rank for 2 epochs, bit for
+    bit with the same command without --multihost (history.csv, the
+    clock's columns aside, and last.ckpt); then ``--resume`` of it through
+    ``load_state_multihost`` and a ``torch.distributed.checkpoint`` round
+    trip, bit for bit. Each sub-phase's seconds.
+
 Runs that hold an epoch-mean ``train_sign_acc`` of exactly 1.0 (phases 7,
 10 and 15) keep each epoch's starting state (``--save-interval 1``). When
 that check fails, the last epoch is replayed from its starting state with
@@ -413,6 +431,22 @@ CALTECH_PER_CLASS = 10
 # a replayed sign dip's record directory, relative to where the script runs
 RECORD_DIR = os.path.join("chiprun_out", "f1")
 F1_PRINTED = 20  # crossings printed; all of them are in the record
+# the parallel path (parallel_path): PARALLEL_RANKS gloo ranks on the one
+# card (NCCL refuses two ranks on one GPU); a set of two V2 and two V3
+# steps at batch 256, a trigger set of 8, a fleet of two; the entry point
+# under torchrun on the CLI's default synthetic set (2048 images, 8 steps
+# an epoch). Inputs, rank results and logdirs under build/
+PARALLEL_DIR = os.path.join("build", "chip_smoke_parallel")
+PARALLEL_RANKS = 4
+PARALLEL_SET = 4 * TRAIN_BATCH
+PARALLEL_TRIGGERS = 8
+PARALLEL_MEMBERS = 2
+PARALLEL_TIMEOUT = 420  # seconds for the processes of one launch
+PARALLEL_CLI_EPOCHS, PARALLEL_CLI_IMAGES = 2, 2048
+PARALLEL_CLI = ["--arch", "resnet", "--dataset", "synthetic", "--batch-size",
+                str(TRAIN_BATCH), "--passport-config", RESNET_CONFIG,
+                "--key-type", "random", "--epochs", str(PARALLEL_CLI_EPOCHS),
+                "--epoch-scan"]
 
 
 def log(*parts):
@@ -1369,13 +1403,14 @@ def train_parity(seed: int, dtype=torch.float32, arch: str = "resnet18",
 
 
 def compare_training(label: str, cpu, gpu, start: dict, cpu_metrics: dict,
-                     gpu_metrics: dict, bf16: bool = False) -> None:
+                     gpu_metrics: dict, bf16: bool = False,
+                     what: str = "card vs CPU") -> None:
     """The card's trained model ``gpu`` against the CPU's ``cpu`` from the
     same ``start`` parameters: metrics, BN statistics and passports at
     TRAIN_TOL (BF16_TRAIN_TOL), each parameter's update within UPDATE_TOL
     (BF16_UPDATE_TOL) of its norm, in bf16 the whole update within
     BF16_WHOLE_UPDATE_TOL."""
-    log(f"{label}, card vs CPU: metrics {gpu_metrics} vs {cpu_metrics}")
+    log(f"{label}, {what}: metrics {gpu_metrics} vs {cpu_metrics}")
     tol = BF16_TRAIN_TOL if bf16 else TRAIN_TOL
     update_tol = BF16_UPDATE_TOL if bf16 else UPDATE_TOL
     gpu_state = gpu.state_dict()
@@ -1405,7 +1440,7 @@ def compare_training(label: str, cpu, gpu, start: dict, cpu_metrics: dict,
     if bf16 and whole > BF16_WHOLE_UPDATE_TOL:
         failed.append(f"whole update {whole}")
     if failed:
-        raise AssertionError(f"{label}: card and CPU training differ in "
+        raise AssertionError(f"{label}: {what} training differ in "
                              f"{failed}")
     log(f"  metrics, BN statistics and passports within rtol {tol['rtol']} "
         f"/ atol {tol['atol']}; every parameter's update within "
@@ -3544,6 +3579,575 @@ def check_sign_acc(run, label: str) -> None:
                          f"{signature}")
 
 
+# ------------------------------------------------------- the parallel path
+
+def parallel_inputs(seed: int) -> dict:
+    """What every rank of the parallel path is handed: bench.py's model's
+    weights, a set of PARALLEL_SET images with its permutation and each
+    step's draws (V2 then V3), the trigger set and its permutation, a
+    validation batch, a fleet of two and its batches, and a batch for the
+    model axis."""
+    from deepipr_tpu_torch.data.datasets import normalize, synthetic_dataset
+    from deepipr_tpu_torch.data.device_augment import draw_augment
+
+    x, y, xv, yv = synthetic_dataset(num_train=PARALLEL_SET,
+                                     num_test=REQUEST_BATCH, size=32,
+                                     seed=seed + 30)
+    wx, wy, fx, fy = synthetic_dataset(num_train=PARALLEL_TRIGGERS,
+                                       num_test=2 * TRAIN_BATCH, size=32,
+                                       seed=seed + 31)
+    gen = torch.Generator().manual_seed(seed + 32)
+    steps = PARALLEL_SET // TRAIN_BATCH
+    return {
+        "seed": seed,
+        "state": train_model(seed + 30, "cpu").state_dict(),
+        "members": [train_model(seed + 40 + i, "cpu").state_dict()
+                    for i in range(PARALLEL_MEMBERS)],
+        "images": torch.from_numpy(x), "labels": torch.from_numpy(y),
+        "perm": torch.randperm(PARALLEL_SET, generator=gen),
+        "draws": [list(draw_augment(gen, TRAIN_BATCH, TRAIN_PAD))
+                  for _ in range(steps)],
+        "wm_images": torch.from_numpy(wx), "wm_labels": torch.from_numpy(wy),
+        "wm_perm": torch.randperm(PARALLEL_TRIGGERS, generator=gen),
+        "valid": {"image": torch.from_numpy(normalize(xv)),
+                  "label": torch.from_numpy(yv)},
+        "fleet": [{"image": torch.from_numpy(normalize(fx[i:i + TRAIN_BATCH])),
+                   "label": torch.from_numpy(fy[i:i + TRAIN_BATCH])}
+                  for i in range(0, 2 * TRAIN_BATCH, TRAIN_BATCH)],
+    }
+
+
+def _digest(flat: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(flat.tobytes()).hexdigest()
+
+
+def _v3_batch(inputs: dict, images, labels, wm, t: int, rows, take: int,
+              dev) -> dict:
+    """The epoch's V3 batch of step ``t`` (train/epoch.py): the rows, the
+    next ``take`` triggers of the cycle, the pair at weight 1 and the
+    lookaheads at weight 0."""
+    wm_x, wm_y = wm
+    m = wm_x.shape[0]
+    idx = inputs["wm_perm"].to(dev)[(t * 2 + torch.arange(take, device=dev))
+                                    % m]
+    weight = torch.ones(TRAIN_BATCH + take, device=dev)
+    weight[TRAIN_BATCH + 2:] = 0.0
+    return {"image": images, "index": rows.to(torch.int32),
+            "label": labels[rows], "wm_image": wm_x[idx],
+            "wm_label": wm_y[idx], "weight": weight}
+
+
+def parallel_rank(rank: int, directory: str) -> None:
+    """One of PARALLEL_RANKS gloo ranks on cuda:0 (``--parallel-rank``):
+    (a) two split V2 then two V3 steps of the mesh epoch (K1 over this
+    rank's rows) on a 4x1 mesh and one evaluation (K2), (d) one step of a
+    model-sharded state against the replicated one on a 2x2 mesh and the
+    sharded state's checkpoint round trip, (b) two steps of a
+    ``shard_ensemble`` fleet of two on the 2x2 mesh. Writes
+    ``rank<r>.pt``: launch counts, seconds, digests of the states (rank 0
+    also the state and metrics of (a); the ranks at batch coordinate 0
+    their member of (b))."""
+    from deepipr_tpu_torch.ops.fused_augment import fused_augment
+    from deepipr_tpu_torch.ops.passport_epilogue import passport_epilogue
+    from deepipr_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from deepipr_tpu_torch.parallel.mesh import (
+        axis_index,
+        flat_state,
+        make_mesh,
+        shard_model_parallel,
+    )
+    from deepipr_tpu_torch.train.ensemble import (
+        make_ensemble_train_step,
+        member_indices,
+        shard_ensemble,
+        stack_states,
+    )
+    from deepipr_tpu_torch.train.epoch import (
+        device_resident,
+        make_epoch_train_fn,
+    )
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.train.steps import (
+        make_dual_eval_step,
+        make_signature_fn,
+        make_train_step,
+        run_dual_eval,
+    )
+    from deepipr_tpu_torch.utils.checkpoint import (
+        load_state_multihost,
+        save_state_multihost,
+        snapshot,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = os.path.abspath(os.path.join(directory, "store"))
+    maybe_initialize_distributed(f"file://{store}", PARALLEL_RANKS, rank,
+                                 backend="gloo")
+    inputs = torch.load(os.path.join(directory, "inputs.pt"),
+                        weights_only=True)
+    seed = inputs["seed"]
+    out = {"seconds": {}}
+
+    def model_from(state):
+        model = train_model(seed, "cuda")
+        model.load_state_dict(state)
+        return model
+
+    # (a) the mesh epoch on a 4x1 mesh, V2 and V3 each from the same
+    # weights, then every rank's evaluation
+    t = time.perf_counter()
+    dp = make_mesh()
+    draws = [tuple(d.cuda() for d in step) for step in inputs["draws"]]
+    images, labels = device_resident(inputs["images"], inputs["labels"],
+                                     "cuda")
+    wm = device_resident(inputs["wm_images"], inputs["wm_labels"], "cuda")
+    half = PARALLEL_SET // 2
+    perm = inputs["perm"].cuda()
+    fused_augment.launches = passport_epilogue.launches = 0
+    fused_augment.form_launches = dict.fromkeys(fused_augment.form_launches,
+                                                0)
+    passport_epilogue.form_launches = dict.fromkeys(
+        passport_epilogue.form_launches, 0)
+    out["state_a"], out["metrics_a"], out["digest_a"] = {}, {}, {}
+    for kind, offset in (("v2", 0), ("v3", half // TRAIN_BATCH)):
+        model = model_from(inputs["state"])
+        fn = make_epoch_train_fn(
+            model, True, TRAIN_BATCH, TRAIN_PAD, wm_batch=2, device="cuda",
+            draws=lambda s, n, o=offset: draws[o + s], mesh=dp)
+        state = TrainState.create(model, TRAIN_LR)
+        if kind == "v2":
+            state, metrics = fn(state, images, labels, 0, perm=perm[:half])
+        else:
+            state, metrics = fn(state, images, labels, 0, *wm,
+                                perm=perm[half:],
+                                wm_perm=inputs["wm_perm"].cuda())
+        out["digest_a"][kind] = _digest(flat_state(state))
+        if rank == 0:
+            out["state_a"][kind] = {k: v.cpu() for k, v in
+                                    model.state_dict().items()}
+            out["metrics_a"][kind] = {k: v.item()
+                                      for k, v in metrics.items()}
+    valid = run_dual_eval(make_dual_eval_step(model, device="cuda"),
+                          [inputs["valid"]])
+    rows = make_signature_fn(model, (1, 32, 32, 3), True, device="cuda")()
+    out["launches"] = {
+        "fused_augment": fused_augment.form_launches[torch.float32],
+        "passport_epilogue": passport_epilogue.form_launches[torch.float32]}
+    out["valid_a"], out["rows_a"] = valid, rows
+    torch.cuda.synchronize()
+    out["seconds"]["a"] = time.perf_counter() - t
+
+    # (d) the model axis on a 2x2 mesh, cuDNN deterministic: the two steps
+    # are the same arithmetic, so the card's must agree bit for bit
+    t = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tp = make_mesh(model_axis=2)
+    batch = inputs["fleet"][0]
+    whole = {}
+    for kind in ("replicated", "sharded"):
+        model = model_from(inputs["state"])
+        state = TrainState.create(model, TRAIN_LR)
+        if kind == "sharded":
+            shard_model_parallel(state, tp)
+            out["d_sharded"] = len(state.model_sharded)
+        step = make_train_step(model, True, device="cuda", mesh=tp)
+        state, metrics = step(state, batch)
+        snap = snapshot(state)
+        whole[kind] = torch.cat([v.reshape(-1).float() for v in
+                                 snap["model"].values()])
+        out[f"d_loss_{kind}"] = metrics["loss"].item()
+    out["d_max_abs"] = (whole["sharded"] - whole["replicated"]).abs().max(
+        ).item()
+    path = os.path.join(directory, "tp.ckpt")
+    save_state_multihost(path, state)
+    back = load_state_multihost(path, TrainState.create(
+        model_from(inputs["state"]), TRAIN_LR), mesh=dp)
+    out["d_round_trip"] = torch.equal(
+        torch.cat([v.reshape(-1).float().cpu() for v in
+                   back.model.state_dict().values()]), whole["sharded"])
+    torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    out["seconds"]["d"] = time.perf_counter() - t
+
+    # (b) a fleet of two over 'model', each member over 'batch'
+    t = time.perf_counter()
+    fleet = stack_states([TrainState.create(model_from(s), TRAIN_LR)
+                          for s in inputs["members"]])
+    local = shard_ensemble(fleet, tp)
+    step = make_ensemble_train_step(local, True, device="cuda", mesh=tp)
+    metrics = []
+    for batch in inputs["fleet"]:
+        local, m = step(local, batch)
+        metrics.append({k: v.tolist() for k, v in m.items()})
+    out["b_members"] = member_indices(len(fleet), tp)
+    out["b_digest"] = [_digest(flat_state(s)) for s in local]
+    if axis_index(tp, "batch") == 0:
+        out["b_states"] = [{k: v.cpu() for k, v in
+                            s.model.state_dict().items()} for s in local]
+        out["b_metrics"] = metrics
+    torch.cuda.synchronize()
+    out["seconds"]["b"] = time.perf_counter() - t
+
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _launch_ranks(directory: str) -> list:
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+         "--parallel-dir", directory], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(PARALLEL_RANKS)]
+
+
+def _wait(procs: list, timeout: float, label: str) -> list:
+    """Every process's output; all are killed once ``timeout`` seconds
+    have passed, and a failed one fails the phase."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label} process {i} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def _model_with(state: dict, seed: int):
+    model = train_model(seed, "cpu")
+    model.load_state_dict(state)
+    return model
+
+
+def parallel_reference(inputs: dict) -> dict:
+    """One process on the card stepping (a)'s global batches with the same
+    draws, and each fleet member alone on (b)'s."""
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.train.steps import make_train_step
+
+    seed = inputs["seed"]
+    draws = [tuple(d.cuda() for d in step) for step in inputs["draws"]]
+    images = inputs["images"].cuda().contiguous()
+    labels = inputs["labels"].cuda().long()
+    wm = (inputs["wm_images"].cuda().contiguous(),
+          inputs["wm_labels"].cuda().long())
+    rows = inputs["perm"].cuda().view(-1, TRAIN_BATCH)
+    take = -(-2 // PARALLEL_RANKS) * PARALLEL_RANKS
+    half = rows.shape[0] // 2
+    models, metrics = {}, {}
+    for kind, offset in (("v2", 0), ("v3", half)):
+        model = train_model(seed, "cuda")
+        model.load_state_dict(inputs["state"])
+        state = TrainState.create(model, TRAIN_LR)
+        step = make_train_step(model, True, pad=TRAIN_PAD, device="cuda",
+                               draws=lambda s, n, o=offset: draws[o + s])
+        seen = []
+        for t in range(half):
+            r = rows[offset + t]
+            if kind == "v2":
+                batch = {"image": images, "index": r.to(torch.int32),
+                         "label": labels[r]}
+            else:
+                batch = _v3_batch(inputs, images, labels, wm, t, r, take,
+                                  "cuda")
+            state, m = step(state, batch)
+            seen.append(m)
+        models[kind] = model
+        metrics[kind] = {n: torch.stack([m[n] for m in seen]).mean().item()
+                         for n in seen[0]}
+    members = []
+    for i, s in enumerate(inputs["members"]):
+        member = train_model(seed, "cuda")
+        member.load_state_dict(s)
+        mstate = TrainState.create(member, TRAIN_LR)
+        mstep = make_train_step(member, True, device="cuda")
+        ms = []
+        for batch in inputs["fleet"]:
+            mstate, m = mstep(mstate, batch)
+            ms.append({k: v.item() for k, v in m.items()})
+        members.append((member, ms))
+    return {"models": models, "metrics": metrics, "members": members}
+
+
+TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1"]
+
+
+def start_parallel_cli() -> dict:
+    """(c), started beside the ranks: ``cli.train_v23 --multihost`` under
+    torchrun with one NCCL rank for PARALLEL_CLI_EPOCHS epochs, and the same
+    command without --multihost. Returns {name: (process, logdir, start)}."""
+    import shutil
+
+    runs = {}
+    for name, cmd in (("multihost", TORCHRUN + [
+            "-m", "deepipr_tpu_torch.cli.train_v23", *PARALLEL_CLI,
+            "--multihost"]), ("plain", [
+            sys.executable, "-m", "deepipr_tpu_torch.cli.train_v23",
+            *PARALLEL_CLI])):
+        logdir = os.path.join(PARALLEL_DIR, f"cli_{name}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        runs[name] = (subprocess.Popen(
+            cmd + ["--logdir", logdir], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), logdir, time.perf_counter())
+    return runs
+
+
+def finish_parallel_cli(runs: dict, smi: str) -> None:
+    """(c): the two runs of ``start_parallel_cli`` bit for bit (every
+    history.csv column but the clock's, and last.ckpt); then, under torchrun
+    again, ``--resume`` of that last.ckpt through ``load_state_multihost``
+    for one epoch, and the checkpoint through ``load_state_multihost`` and
+    a ``save_state_dcp`` / ``load_state_dcp`` round trip bit for bit
+    (``--resume-check``)."""
+    run = {}
+    for name, (proc, logdir, t) in runs.items():
+        _wait([proc], PARALLEL_TIMEOUT, f"train_v23 ({name})")
+        log(f"parallel_path (c) train_v23 {name}, {PARALLEL_CLI_EPOCHS} "
+            f"epochs beside the ranks: {time.perf_counter() - t:.1f} s "
+            f"[{smi}]")
+        run[name] = os.path.join(logdir, "resnet_synthetic_v2", "1")
+    got, want = (history(run[k]) for k in ("multihost", "plain"))
+    if len(got) != PARALLEL_CLI_EPOCHS or [sorted(r) for r in got] != [
+            sorted(r) for r in want]:
+        raise AssertionError(f"--multihost history {got} vs {want}")
+    differ = [(i, k) for i, (g, w) in enumerate(zip(got, want))
+              for k in w if k not in ("train_time", "train_images_per_sec")
+              and g[k] != w[k]]
+    a, b = (torch.load(os.path.join(run[k], "models", "last.ckpt"),
+                       weights_only=True) for k in ("multihost", "plain"))
+    differ += [k for k in b["model"] if not torch.equal(a["model"][k],
+                                                        b["model"][k])]
+    differ += [i for i, st in b["optimizer"]["state"].items()
+               if not torch.equal(a["optimizer"]["state"][i]
+                                  ["momentum_buffer"], st["momentum_buffer"])]
+    if a["step"] != b["step"]:
+        differ.append("step")
+    if differ:
+        raise AssertionError(f"--multihost with one rank changed "
+                             f"{differ[:8]}")
+    log(f"parallel_path (c): --multihost on one NCCL rank equals the run "
+        f"without it bit for bit: {len(want[0]) - 2} history columns x "
+        f"{len(want)} epochs (train_time and train_images_per_sec aside), "
+        f"last.ckpt's {len(b['model'])} entries, momentum and step "
+        f"{b['step']}")
+
+    t = time.perf_counter()
+    out = _wait([subprocess.Popen(
+        TORCHRUN + [os.path.abspath(__file__), "--resume-check",
+                    os.path.join(run["multihost"], "models", "last.ckpt"),
+                    "--parallel-dir", os.path.join(PARALLEL_DIR,
+                                                   "cli_resumed")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)], PARALLEL_TIMEOUT, "torchrun --resume-check")[0]
+    for line in out.splitlines():
+        if line.startswith("resume-check"):
+            log(f"parallel_path (c) {line}")
+    if "resume-check ok" not in out:
+        raise AssertionError(f"--resume-check:\n{out[-6000:]}")
+    log(f"parallel_path (c) resume and dcp: {time.perf_counter() - t:.1f} s")
+
+
+def resume_check(ckpt: str, logdir: str) -> None:
+    """Under torchrun (``--resume-check``): ``cli.train_v23 --multihost
+    --resume`` of ``ckpt`` for one epoch; ``ckpt`` through
+    ``load_state_multihost`` into a fresh state, then a
+    ``save_state_dcp``/``load_state_dcp`` round trip, each bit for bit with
+    the file."""
+    import torch.distributed as dist
+
+    from deepipr_tpu_torch.cli import train_v23
+    from deepipr_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        rank_device,
+    )
+    from deepipr_tpu_torch.train.state import TrainState
+    from deepipr_tpu_torch.utils.checkpoint import (
+        load_state_dcp,
+        load_state_multihost,
+        save_state_dcp,
+        snapshot,
+    )
+
+    if not maybe_initialize_distributed():
+        raise AssertionError("no torchrun variables")
+    try:
+        exp = train_v23.main([*PARALLEL_CLI, "--multihost", "--epochs", "1",
+                              "--resume", ckpt, "--logdir", logdir])
+        rows = history(exp.logdir)
+        want = torch.load(ckpt, weights_only=True)
+        steps = want["step"] + len(rows) * PARALLEL_CLI_IMAGES // TRAIN_BATCH
+        if (len(rows) != 1 or exp.state.step != steps
+                or not all(np.isfinite(v) for v in rows[0].values())):
+            raise AssertionError(f"resumed run: step {exp.state.step}, "
+                                 f"expected {steps}; rows {rows}")
+        print(f"resume-check: --resume from step {want['step']} ran to step "
+              f"{exp.state.step} on {dist.get_backend()} rank "
+              f"{dist.get_rank()} of {dist.get_world_size()}", flush=True)
+
+        def fresh():
+            return TrainState.create(train_model(0, rank_device()), TRAIN_LR)
+
+        def equal(snap):
+            return (snap["step"] == want["step"]
+                    and all(torch.equal(snap["model"][k], v)
+                            for k, v in want["model"].items())
+                    and all(torch.equal(snap["optimizer"]["state"][i]
+                                        ["momentum_buffer"],
+                                        st["momentum_buffer"])
+                            for i, st in want["optimizer"]["state"].items()))
+
+        loaded = load_state_multihost(ckpt, fresh())
+        if not equal(snapshot(loaded)):
+            raise AssertionError("load_state_multihost changed the state")
+        directory = os.path.join(logdir, "dcp")
+        save_state_dcp(directory, loaded)
+        if not equal(snapshot(load_state_dcp(directory, fresh()))):
+            raise AssertionError("the dcp round trip changed the state")
+        print(f"resume-check: load_state_multihost and the dcp round trip "
+              f"bit for bit ({len(want['model'])} entries, momentum, step "
+              f"{want['step']})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print("resume-check ok", flush=True)
+
+
+def parallel_path(seed: int, smi: str) -> dict:
+    """The port's multi-process training on the one card (module docstring,
+    phase 19). Returns the launch counts of (a) summed over the ranks: K1
+    in every step of every rank, K2 in every rank's evaluation."""
+    import shutil
+
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    inputs = parallel_inputs(seed)
+    torch.save(inputs, os.path.join(PARALLEL_DIR, "inputs.pt"))
+    t = time.perf_counter()
+    procs = _launch_ranks(PARALLEL_DIR)
+    runs = {}
+    try:
+        runs = start_parallel_cli()
+        ref = parallel_reference(inputs)
+        _wait(procs, PARALLEL_TIMEOUT, "parallel rank")
+        counts = parallel_checks(inputs, ref, seed, smi, t)
+        finish_parallel_cli(runs, smi)
+    finally:
+        _kill(procs + [p for p, _, _ in runs.values()])
+    return counts
+
+
+def _kill(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def parallel_checks(inputs: dict, ref: dict, seed: int, smi: str,
+                    t: float) -> dict:
+    """(a), (d) and (b) from the ranks' results; returns (a)'s launch
+    counts summed over the ranks."""
+    log(f"parallel_path: {PARALLEL_RANKS} gloo ranks on cuda:0 and the "
+        f"one-process reference: {time.perf_counter() - t:.1f} s [{smi}]")
+    ranks = [torch.load(os.path.join(PARALLEL_DIR, f"rank{r}.pt"),
+                        weights_only=True) for r in range(PARALLEL_RANKS)]
+    for r, out in enumerate(ranks):
+        log(f"parallel_path rank {r}: seconds "
+            f"{json.dumps({k: round(v, 3) for k, v in out['seconds'].items()})}"
+            f", launches {out['launches']}")
+
+    # (a) the ranks against one process, and against each other
+    start = {k: v.clone() for k, v in
+             _model_with(inputs["state"], seed).named_parameters()}
+    for kind in ("v2", "v3"):
+        compare_training(
+            f"parallel_path (a) {kind}: {PARALLEL_RANKS} ranks x "
+            f"{TRAIN_BATCH // PARALLEL_RANKS} rows"
+            + (f" (and the trigger pair padded to {PARALLEL_RANKS} at weight "
+               "0)" if kind == "v3" else "") + ", 2 steps",
+            ref["models"][kind].cpu(),
+            _model_with(ranks[0]["state_a"][kind], seed), start,
+            ref["metrics"][kind], ranks[0]["metrics_a"][kind],
+            what="ranks vs one process")
+        digests = {out["digest_a"][kind] for out in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"(a) {kind}: the ranks' states differ: "
+                                 f"{digests}")
+    if any(out["valid_a"] != ranks[0]["valid_a"]
+           or out["rows_a"] != ranks[0]["rows_a"] for out in ranks):
+        raise AssertionError("(a): the ranks' evaluations differ")
+    steps = PARALLEL_SET // TRAIN_BATCH
+    for r, out in enumerate(ranks):
+        k1, k2 = (out["launches"][k] for k in ("fused_augment",
+                                                "passport_epilogue"))
+        if k1 != steps or k2 != 2 * RESNET_K2:
+            raise AssertionError(f"rank {r}: K1 {k1} launches in {steps} "
+                                 f"steps, K2 {k2} in its evaluation")
+    log(f"parallel_path (a): the {PARALLEL_RANKS} ranks' parameters, BN "
+        f"statistics, passports and momentum bit for bit; on each rank K1 "
+        f"once in each of its {steps} steps, K2 {2 * RESNET_K2} times in its "
+        f"evaluation (the dual eval and the signature rows); valid "
+        f"{ranks[0]['valid_a']}")
+
+    # (d) the model axis, on the card over gloo (the gather broadcasts)
+    for r, out in enumerate(ranks):
+        if (out["d_max_abs"] != 0.0 or not out["d_round_trip"]
+                or out["d_loss_sharded"] != out["d_loss_replicated"]
+                or out["d_sharded"] < 5):
+            raise AssertionError(f"rank {r} (d): " + json.dumps(
+                {k: v for k, v in out.items() if k.startswith("d_")}))
+    log(f"parallel_path (d): the model axis runs on the card over gloo; "
+        f"{ranks[0]['d_sharded']} tensors sharded 2 ways on a 2x2 mesh, one "
+        f"step equal to the replicated step bit for bit (loss "
+        f"{ranks[0]['d_loss_sharded']}), its save_state_multihost / "
+        f"load_state_multihost round trip bit for bit")
+
+    # (b) each member of the fleet against itself stepped alone
+    for a, b in ((0, 2), (1, 3)):  # the ranks of one member's batch group
+        if (ranks[a]["b_members"] != ranks[b]["b_members"]
+                or ranks[a]["b_digest"] != ranks[b]["b_digest"]):
+            raise AssertionError(f"(b): ranks {a} and {b} differ")
+    for r in (0, 1):
+        for j, i in enumerate(ranks[r]["b_members"]):
+            member, ms = ref["members"][i]
+            start = {k: v.clone() for k, v in _model_with(
+                inputs["members"][i], seed).named_parameters()}
+            last = {k: v[j] for k, v in ranks[r]["b_metrics"][-1].items()}
+            compare_training(
+                f"parallel_path (b): fleet member {i} over a 2-way batch "
+                f"axis, 2 steps", member.cpu(),
+                _model_with(ranks[r]["b_states"][j], seed), start, ms[-1],
+                last, what="ranks vs the member alone")
+    log(f"parallel_path (b): {PARALLEL_MEMBERS} members over 'model', each "
+        "over 'batch', against each member stepped alone")
+
+    counts = dict.fromkeys(("passport_epilogue", "passport_epilogue_bf16",
+                            "passport_epilogue_backward", "fused_augment",
+                            "fused_augment_bf16"), 0)
+    for out in ranks:
+        for k, v in out["launches"].items():
+            counts[k] += v
+    return counts
+
+
 def shape_key(shape, relu: bool = True) -> str:
     return "x".join(map(str, shape)) + ("" if relu else " relu off")
 
@@ -3551,10 +4155,30 @@ def shape_key(shape, relu: bool = True) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    # the processes the parallel phase starts, and a run of that phase alone
+    parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--resume-check", help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="the environment, the build and phase 19 only "
+                             "(prints no result)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:
+        parallel_rank(args.parallel_rank, args.parallel_dir)
+        return 0
+    if args.resume_check is not None:
+        resume_check(args.resume_check, args.parallel_dir)
+        return 0
+    if args.parallel_only:
+        smi = environment()
+        with phase("build"):
+            build_kernels()
+        with phase("parallel_path"):
+            log(f"parallel_path launches: {parallel_path(args.seed, smi)}")
+        return 0
 
     from deepipr_tpu_torch.ops.fused_augment import fused_augment
     from deepipr_tpu_torch.ops.passport_epilogue import (
@@ -3663,6 +4287,12 @@ def main() -> int:
                                                    launches, reset)
     with phase("data"):
         paths.update(data_path(best, smi, launches, reset))
+    with phase("parallel_path"):
+        paths["parallel_path"] = parallel_path(args.seed, smi)
+        if not all(paths["parallel_path"][k] for k in ("fused_augment",
+                                                       "passport_epilogue")):
+            raise AssertionError(f"parallel_path launches "
+                                 f"{paths['parallel_path']}")
     # every kernel form on the AlexNet paths: K1 in training, K2 in both
     # forms in serving (8x8 and 13x13), K2-bwd in the attacks
     alexnet = {form: sum(c.get(form, 0) for name, c in paths.items()

@@ -11,8 +11,17 @@ on --tl-dataset and records signature survival (train/transfer.py);
 .pth/.pt. ``--dataset caltech-101/caltech-256`` reads class folders (or
 the reference's archive) under ``--data-root``/<dataset>, and
 ``--dataset imagenet1000`` streams ``--data-root``/ILSVRC2012/{train,val}.
---multihost (ROADMAP queue 1, item 1) and --download (the port reads local
-files only) raise NotImplementedError.
+--download (the port reads local files only) raises NotImplementedError.
+
+``--multihost`` trains data-parallel over the processes of a
+``torch.distributed`` group (parallel/), set up from torchrun's variables
+before the first device use; each rank runs on ``cuda:LOCAL_RANK``:
+
+    torchrun --nproc-per-node 4 -m deepipr_tpu_torch.cli.train_v1 \
+        --multihost --epoch-scan ...
+
+Without torchrun's variables it runs a world of one process, the
+single-process run bit for bit.
 """
 
 import argparse
@@ -78,7 +87,9 @@ def build_parser():
 
     # misc
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="multi-process training (not ported yet)")
+                   help="multi-process training over a torch.distributed "
+                        "group (launch under torchrun; one rank per GPU "
+                        "with NCCL)")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bf16 convolutions and normalize path, and a bf16 "
                         "input stage (weights, BN statistics and passport "
@@ -125,21 +136,53 @@ def build_parser():
     return p
 
 
+def maybe_init_multihost(args, device="cuda"):
+    """--multihost: set up the process group before any device use and
+    return (this rank's device, whether this call set the group up)."""
+    if not args.get("multihost"):
+        return device, False
+    import torch
+    import torch.distributed as dist
+
+    from deepipr_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        rank_device,
+    )
+
+    created = not dist.is_initialized()
+    cpu = torch.device(device).type == "cpu"
+    maybe_initialize_distributed(auto=True,
+                                 backend="gloo" if cpu else None)
+    device = rank_device(device)
+    print(f"multihost: process {dist.get_rank()} of "
+          f"{dist.get_world_size()}, backend {dist.get_backend()}, "
+          f"device {device}")
+    return device, created
+
+
 def run(args, device="cuda"):
     """Train, evaluate with --eval, or run transfer learning with
     --transfer-learning, as ``args`` (a dict of the parser's values) say;
-    returns the experiment."""
+    returns the experiment. A process group that ``--multihost`` set up is
+    taken down at the end."""
     from deepipr_tpu_torch.train.experiment import ClassificationExperiment
 
-    exp = ClassificationExperiment(args, device=device)
-    if args["eval"]:
-        print(exp.evaluate_only())
-    elif exp.is_tl:
-        from deepipr_tpu_torch.train.transfer import transfer_learning
+    device, created = maybe_init_multihost(args, device)
+    try:
+        exp = ClassificationExperiment(args, device=device)
+        if args["eval"]:
+            print(exp.evaluate_only())
+        elif exp.is_tl:
+            from deepipr_tpu_torch.train.transfer import transfer_learning
 
-        transfer_learning(exp)
-    else:
-        exp.training()
+            transfer_learning(exp)
+        else:
+            exp.training()
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print("Training done at", exp.logdir)
     return exp
 

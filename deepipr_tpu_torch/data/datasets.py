@@ -470,10 +470,13 @@ def prepare_dataset(args: Dict):
             droot, 101 if ds == "caltech-101" else 256,
             split=args.get("caltech_split", "shuffled"))
     elif ds == "imagenet1000":
+        # under --multihost each rank streams its strided share (JAX
+        # datasets.py:557-567)
+        num_shards, shard_id = 1, 0
         if args.get("multihost"):
-            raise NotImplementedError(
-                "--multihost is not ported yet (ROADMAP queue 1, item 1: "
-                "DDP and mesh training, multihost)")
+            from deepipr_tpu_torch.parallel.distributed import rank, world
+
+            num_shards, shard_id = world(), rank()
         base = os.path.join(root, "ILSVRC2012")
         cache = args.get("imagenet_cache")
         workers = args.get("workers", 16)
@@ -481,7 +484,7 @@ def prepare_dataset(args: Dict):
         train_loader = StreamingImageFolder(
             os.path.join(base, "train"), bs, train=not is_tl, shuffle=True,
             drop_last=True, seed=args.get("seed", 0), workers=workers,
-            cache_dir=cache,
+            cache_dir=cache, num_shards=num_shards, shard_id=shard_id,
             raw=bool(args.get("device_augment")) and not is_tl, draft=draft)
         test_loader = StreamingImageFolder(
             os.path.join(base, "val"), bs * 2, train=False, workers=workers,

@@ -24,6 +24,19 @@ Under bf16 (flax's ``BatchNorm(dtype=bf16)`` and ``GroupNorm(dtype=bf16)``)
 a norm takes the block's bf16 activations and returns bf16: statistics,
 running buffers and affine parameters stay f32, and the normalize runs in
 f32 and is rounded once.
+
+On a mesh (train/steps.py with ``mesh=``) each rank holds its rows of the
+global batch. Flax's BN under the JAX package's mesh takes its mean over
+the sharded batch axis, which XLA makes a global reduction: it normalizes
+with the whole global batch's statistics, the weight-0 padding rows
+included. Inside ``synced_batch_stats(group)`` train-mode BN does the same
+(``_SyncBatchNorm``): the forward sums each channel over the group's ranks
+in f32, first the sum, then the centred sum of squares (the two passes of
+``var_mean``), and the backward sums dy and dy*x_hat over them. The
+running statistics then take the global batch's mean and biased variance,
+equal on every rank. ``torch.nn.SyncBatchNorm`` cannot stand in: it has
+no CPU path. Without a group, or with a group of one rank, the code and
+the bits are the single-process ones.
 """
 
 from __future__ import annotations
@@ -42,6 +55,78 @@ EPS = 1e-5
 BN_MOMENTUM = 0.9
 
 _frozen = threading.local()
+# the 'batch' process group whose ranks share train-mode BN statistics
+# (synced_batch_stats); a process-wide setting, since a remat
+# recomputation runs in autograd's threads
+_sync = {"group": None, "size": 1}
+
+
+@contextlib.contextmanager
+def synced_batch_stats(group, size: int) -> Iterator[None]:
+    """Train-mode BN takes its statistics over the rows of every rank of
+    ``group`` (``size`` ranks, each with as many rows) while inside."""
+    before = dict(_sync)
+    _sync.update(group=group, size=size)
+    try:
+        yield
+    finally:
+        _sync.update(before)
+
+
+def _channel_sum(t: torch.Tensor) -> torch.Tensor:
+    return t.sum(dim=(0, 2, 3))
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the rows of every rank of a group: returns
+    (y, batch mean, biased batch variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group, size):
+        import torch.distributed as dist
+
+        xf = x.to(torch.float32)
+        count = x.numel() // x.shape[1] * size
+        total = _channel_sum(xf)
+        dist.all_reduce(total, group=group)
+        mean = total / count
+        centred = xf - _per_channel(mean)
+        sq = _channel_sum(centred * centred)
+        dist.all_reduce(sq, group=group)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = centred * _per_channel(invstd)
+        y = xhat
+        if weight is not None:
+            y = y * _per_channel(weight) + _per_channel(bias)
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.group, ctx.count = group, count
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+
+        xhat, invstd, weight = ctx.saved_tensors
+        dyf = dy.to(torch.float32)
+        sum_dy = _channel_sum(dyf)
+        sum_dy_xhat = _channel_sum(dyf * xhat)
+        # the affine's gradients are this rank's part; the step's gradient
+        # all-reduce sums them over the ranks
+        dweight = sum_dy_xhat.clone() if weight is not None else None
+        dbias = sum_dy.clone() if weight is not None else None
+        both = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(both, group=ctx.group)
+        mean_dy, mean_dy_xhat = (both / ctx.count).chunk(2)
+        scale = invstd if weight is None else invstd * weight
+        dx = _per_channel(scale) * (dyf - _per_channel(mean_dy)
+                                    - xhat * _per_channel(mean_dy_xhat))
+        return dx.to(dy.dtype), dweight, dbias, None, None, None
 
 
 @contextlib.contextmanager
@@ -98,6 +183,17 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
+        if _sync["size"] > 1:
+            y, mean, var = _SyncBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, _sync["group"],
+                _sync["size"])
+            if not getattr(_frozen, "on", False):
+                with torch.no_grad():
+                    for buf, batch in ((self.running_mean, mean),
+                                       (self.running_var, var)):
+                        buf.mul_(BN_MOMENTUM).add_(batch,
+                                                   alpha=1.0 - BN_MOMENTUM)
+            return y
         if getattr(_frozen, "on", False):
             return F.batch_norm(x, None, None, weight, bias, True, 0.0,
                                 self.eps)

@@ -14,8 +14,10 @@ arithmetic of JAX's ``vmap(train_step)``, member by member. Metrics are
 per-member vectors, as there. Eval forwards (signature rows, dual eval)
 run member by member too: K2's ctypes launch cannot be batched by ``vmap``.
 
-``shard_ensemble`` (members over a mesh axis) waits for DDP (ROADMAP
-queue 1, item 1). The members' random draws are the port's own (W7):
+``shard_ensemble`` lays the members over a mesh axis of ranks
+(parallel/mesh.py): each group of ranks keeps and steps its own members
+only, data-parallel over the mesh's 'batch' axis, with no communication
+between members. The members' random draws are the port's own (W7):
 ``init_ensemble`` seeds each member's ``build_model`` from (seed, i), and
 ``override_signature`` seeds a ``torch.Generator`` from the JAX package's
 per-layer digest, so a signature's ASCII head equals JAX's and its random
@@ -33,6 +35,7 @@ from torch import nn
 
 from deepipr_tpu_torch.attacks.common import derived_affines, jax_path
 from deepipr_tpu_torch.data.device_augment import make_device_augment
+from deepipr_tpu_torch.parallel.mesh import axis_index, axis_size
 from deepipr_tpu_torch.passport.codec import (
     SignatureSpec,
     bit_accuracy,
@@ -216,7 +219,7 @@ def make_ensemble_train_step(ensemble: Ensemble, private: bool,
 def make_ensemble_epoch_fn(ensemble: Ensemble, private: bool,
                            batch_size: int, pad: int,
                            seed: int = 0, draws: Optional[DrawFn] = None,
-                           device: DeviceLike = "cuda"):
+                           device: DeviceLike = "cuda", mesh=None):
     """Device-resident epochs for the whole fleet: epoch_fn(ensemble,
     images_u8, labels, epoch_key, perm=None) -> (ensemble, mean_metrics).
 
@@ -230,12 +233,15 @@ def make_ensemble_epoch_fn(ensemble: Ensemble, private: bool,
     tests inject JAX's. Then every member takes its train step on it, so
     the fleet pays one augmentation, not N. Pad 0 degrades to flip and
     normalize. ``mean_metrics``: each metric's mean
-    over the steps, an (N,) device tensor. V2 scope, as in JAX.
+    over the steps, an (N,) device tensor. V2 scope, as in JAX. ``mesh``:
+    a ``shard_ensemble`` fleet's members step data-parallel over its
+    'batch' axis, each rank on its rows of every augmented batch.
     """
     dev = resolve_device(device)
     augment = make_device_augment(pad)
     draws = draws or seeded_draws(seed, pad, dev)
-    fleet_step = make_ensemble_train_step(ensemble, private, device=dev)
+    fleet_step = make_ensemble_train_step(ensemble, private, device=dev,
+                                          mesh=mesh)
 
     def epoch_fn(ens: Ensemble, images_u8: torch.Tensor,
                  labels: torch.Tensor, epoch_key: int,
@@ -282,3 +288,30 @@ def make_ensemble_signature_fn(input_shape, private: bool,
                 for path, v in rows.items()}
 
     return fn
+
+
+def member_indices(n: int, mesh, axis_name: str = "model") -> List[int]:
+    """The members of an n-member fleet that this rank's group holds under
+    ``shard_ensemble``."""
+    parts = axis_size(mesh, axis_name)
+    if n % parts:
+        raise ValueError(f"{n} members do not split over a {parts}-way "
+                         f"{axis_name!r} axis")
+    per = n // parts
+    first = axis_index(mesh, axis_name) * per
+    return list(range(first, first + per))
+
+
+def shard_ensemble(ensemble: Ensemble, mesh, axis_name: str = "model"
+                   ) -> Ensemble:
+    """Lay the members over the mesh axis ``axis_name``: this rank keeps
+    the members of its coordinate (``member_indices``) and drops the
+    others. Counterpart of the JAX package's ``shard_ensemble``
+    (ensemble.py:250-264). Build the fleet's step with
+    ``make_ensemble_train_step(local, private, mesh=mesh)``: each member
+    then steps data-parallel over the 'batch' axis, its gradients summed
+    within its own 'batch' group, with no communication between members.
+    The step's metrics are (local members,) vectors."""
+    return stack_states([ensemble[i]
+                         for i in member_indices(len(ensemble), mesh,
+                                                 axis_name)])

@@ -11,9 +11,19 @@ reference's cycling trigger loader, trainer.py:115-126). Metrics are
 averaged on the device; the caller reads them once per epoch.
 
 The JAX package runs the epoch as one ``lax.scan``; here it is a loop over
-steps. Its ``input_stage`` switch and ``mesh`` argument have no
-counterpart: the port has one input stage, K1 on a CUDA tensor and its
-plain version on a CPU tensor, and multi-device training is ROADMAP queue 1.
+steps. Its ``input_stage`` switch has no counterpart: the port has one
+input stage, K1 on a CUDA tensor and its plain version on a CPU tensor.
+
+On a mesh (``mesh=``, parallel/mesh.py) every rank holds the whole set
+resident (``device_resident`` on each rank: replicated, as the JAX
+package's ``P()``), draws the same permutation, and hands the train step
+the global batch's row indices; the step's K1 gathers only this rank's
+rows. The JAX package refuses its Pallas input stage on a mesh, since a
+``pallas_call`` is opaque to SPMD partitioning; the port's K1 is called on
+each rank's rows and keeps the one input stage everywhere. V3 takes its
+trigger batch rounded up to the 'batch' axis (``wm_take``), the extra
+triggers lookaheads of the cycle at loss weight 0, exactly as the JAX
+epoch does (epoch.py:132-135, 203-214).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from deepipr_tpu_torch.parallel.mesh import axis_size
 from deepipr_tpu_torch.train.state import TrainState
 from deepipr_tpu_torch.train.steps import DrawFn, DropoutFn, make_train_step
 from deepipr_tpu_torch.utils.device import DeviceLike, resolve_device, \
@@ -56,7 +67,7 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
                         draws: Optional[DrawFn] = None,
                         dropout: Optional[DropoutFn] = None,
                         out_dtype: torch.dtype = torch.float32,
-                        device: DeviceLike = "cuda"):
+                        device: DeviceLike = "cuda", mesh=None):
     """Build epoch_fn(state, images_u8, labels, epoch_key[, wm_images_u8,
     wm_labels], perm=None, wm_perm=None) -> (state, mean_metrics).
 
@@ -68,13 +79,21 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
     augmentation draws, ``dropout`` the per-step dropout masks, and
     ``out_dtype`` the dtype K1 writes, as in ``make_train_step``.
     ``mean_metrics``: each step metric averaged over the epoch, as device
-    tensors.
+    tensors. ``mesh``: train data-parallel over its 'batch' axis (module
+    docstring); ``batch_size`` must divide by the axis's size.
     """
     dev = resolve_device(device)
+    n_shards = axis_size(mesh, "batch") if mesh is not None else 1
+    if batch_size % n_shards:
+        raise ValueError(f"epoch scan on a {n_shards}-way batch mesh needs "
+                         f"batch_size % {n_shards} == 0, got {batch_size}")
+    # the trigger take of a step: wm_batch on one rank, rounded up to the
+    # batch axis on a mesh; the extras carry loss weight 0
+    wm_take = -(-wm_batch // n_shards) * n_shards
     step_fn = make_train_step(model, private, split_branches=split_branches,
                               pad=pad, remat=remat, seed=seed, draws=draws,
                               dropout=dropout, out_dtype=out_dtype,
-                              device=dev)
+                              device=dev, mesh=mesh)
 
     def epoch_fn(state: TrainState, images_u8: torch.Tensor,
                  labels: torch.Tensor, epoch_key: int,
@@ -97,7 +116,11 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
                     m, generator=seeded_generator(dev, epoch_key, 1),
                     device=dev)
             wm_perm = torch.as_tensor(wm_perm, device=dev).long()
-            cycle = torch.arange(wm_batch, device=dev)
+            cycle = torch.arange(wm_take, device=dev)
+            weight = None
+            if wm_take != wm_batch:
+                weight = torch.ones(batch_size + wm_take, device=dev)
+                weight[batch_size + wm_batch:] = 0.0
 
         history = []
         for t in range(steps):
@@ -108,6 +131,8 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
                 wm_idx = wm_perm[(t * wm_batch + cycle) % m]
                 batch["wm_image"] = wm_images_u8[wm_idx]
                 batch["wm_label"] = wm_labels[wm_idx]
+                if weight is not None:
+                    batch["weight"] = weight
             state, metrics = step_fn(state, batch)
             history.append(metrics)
         return state, {k: torch.stack([h[k] for h in history]).mean()

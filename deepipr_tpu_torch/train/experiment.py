@@ -1,8 +1,7 @@
 """Experiment orchestration: directories, config, training loops for all schemes.
 
 Counterpart of ``deepipr_tpu/train/experiment.py`` (reference
-experiments/base.py, classification.py, classification_private.py), on one
-device:
+experiments/base.py, classification.py, classification_private.py):
 
 - scheme derived from flags: --train-passport -> 1, --train-private -> 2,
   + --train-backdoor -> 3, else 0 (base.py:48-55);
@@ -27,9 +26,21 @@ path without the random crop; ``train/transfer.py`` runs it.
 ``--pretrained-path`` takes a port checkpoint or a reference or
 torchvision ``.pth``/``.pt`` (interop/torchvision_import.py).
 
-Not ported (each raises ``NotImplementedError``): ``--multihost``
-(ROADMAP queue 1, item 1) and ``--download`` (the port reads local files
-only).
+Several processes (``--multihost``, parallel/): with a process group of
+more than one rank (``use_mesh``, on by default, as in the JAX package)
+the experiment trains data-parallel on a ``make_mesh()`` of every rank.
+Each rank is handed the global batches and keeps its rows (train/steps.py
+with ``mesh=``); V3's batches are padded up to the 'batch' axis with
+weight-0 triggers from the cycling iterator, as the JAX package's
+``_batches`` does, and ``--epoch-scan`` falls back to the per-step path
+when the batch size does not divide over the axis. Rank 0 picks the expid
+and broadcasts it, and alone writes ``config.json``, ``history.csv`` and
+the checkpoints (``save_state_multihost``); every rank evaluates, as the
+JAX package's replicated evaluation does. With one rank the experiment is
+the single-process one, bit for bit.
+
+Not ported: ``--download`` raises ``NotImplementedError`` (the port reads
+local files only).
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ from deepipr_tpu_torch.data.datasets import (
 from deepipr_tpu_torch.data.prefetch import prefetch
 from deepipr_tpu_torch.interop.torchvision_import import load_torch_pretrained
 from deepipr_tpu_torch.models.registry import NUM_CLASSES, build_model
+from deepipr_tpu_torch.parallel.distributed import rank, world
+from deepipr_tpu_torch.parallel.mesh import axis_size, make_mesh, replicate
 from deepipr_tpu_torch.serve import passports
 from deepipr_tpu_torch.train.epoch import device_resident, make_epoch_train_fn
 from deepipr_tpu_torch.train.keys import sample_candidates, setup_passports
@@ -70,7 +83,9 @@ from deepipr_tpu_torch.train.steps import (
 from deepipr_tpu_torch.utils.checkpoint import (
     AsyncCheckpointer,
     load_state,
+    load_state_multihost,
     save_state,
+    save_state_multihost,
 )
 from deepipr_tpu_torch.utils.config import (
     construct_passport_kwargs,
@@ -116,15 +131,9 @@ def derive_scheme(args: Dict) -> int:
 
 
 def _unported(args: Dict) -> None:
-    """Raise for the flags the port does not run yet."""
-    reasons = {
-        "multihost": "--multihost is not ported yet (ROADMAP queue 1, item "
-                     "1: DDP and mesh training, multihost)",
-        "download": DOWNLOAD_REFUSED,
-    }
-    for flag, reason in reasons.items():
-        if args.get(flag):
-            raise NotImplementedError(reason)
+    """Raise for the flags the port does not run."""
+    if args.get("download"):
+        raise NotImplementedError(DOWNLOAD_REFUSED)
 
 
 class Experiment:
@@ -167,6 +176,8 @@ class Experiment:
         if self.tag:
             self.logdir += f"_{self.tag}"
         self._csv_first = True
+        # rank 0 of a process group writes the logdir; the others read it
+        self.writer = rank() == 0
 
     def backend(self) -> str:
         """What config.json records as the device the run used."""
@@ -185,17 +196,37 @@ class Experiment:
             else:
                 print(f"Warning: No such experiment -> {path}")
             return
-        existing = [int(d) for d in os.listdir(self.logdir)
-                    if os.path.isdir(os.path.join(self.logdir, d))
-                    and d.isdigit()]
-        expid = min(set(range(1, max(existing, default=0) + 2))
-                    - set(existing))
+        expid = 0
+        if self.writer:
+            existing = [int(d) for d in os.listdir(self.logdir)
+                        if os.path.isdir(os.path.join(self.logdir, d))
+                        and d.isdigit()]
+            expid = min(set(range(1, max(existing, default=0) + 2))
+                        - set(existing))
+        expid = self._from_rank0(expid)
         self.logdir = os.path.join(self.logdir, str(expid))
+        if not self.writer:
+            return
         os.makedirs(os.path.join(self.logdir, "models"), exist_ok=True)
         with open(os.path.join(self.logdir, "config.json"), "w") as f:
             json.dump({**self.args, "backend": self.backend()}, f, indent=4)
 
+    def _from_rank0(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank of the process group: the
+        expid, which the ranks would otherwise race for."""
+        if world() == 1:
+            return value
+        import torch.distributed as dist
+
+        dev = (getattr(self, "device", "cpu")
+               if dist.get_backend() == "nccl" else "cpu")
+        t = torch.tensor([value], dtype=torch.int64, device=dev)
+        dist.broadcast(t, src=0)
+        return int(t.item())
+
     def append_history(self, metrics: Dict):
+        if not self.writer:
+            return
         path = os.path.join(self.logdir, "history.csv")
         cols = sorted(metrics.keys())
         with open(path, "a", newline="") as f:
@@ -237,6 +268,16 @@ class ClassificationExperiment(Experiment):
             self.args["epoch_scan"] = False
         self.device_augment = bool(self.args.get("device_augment"))
         self.epoch_scan = bool(self.args.get("epoch_scan"))
+        # data parallelism over every rank of a process group (JAX
+        # experiment.py:248-258); one rank keeps the single-process path
+        self.mesh = (make_mesh() if self.args.get("use_mesh", True)
+                     and world() > 1 else None)
+        self.n_shards = (axis_size(self.mesh, "batch")
+                         if self.mesh is not None else 1)
+        if self.epoch_scan and self.batch_size % self.n_shards:
+            print(f"WARNING: --epoch-scan needs batch_size divisible by the "
+                  f"{self.n_shards}-way batch axis; using the per-step path")
+            self.epoch_scan = False
         # the last host-fed epoch's producer seconds per batch
         # (data/prefetch.py)
         self.prefetch_stats: Dict = {}
@@ -297,10 +338,13 @@ class ClassificationExperiment(Experiment):
             self._setup_keys()
         if self.args.get("resume"):
             # restores optimizer state, BN statistics, passports,
-            # signatures and the step counter
-            self.state = load_state(self.args["resume"], self.state)
+            # signatures and the step counter, on every rank
+            self.state = load_state_multihost(self.args["resume"],
+                                              self.state)
             print(f"Resumed full train state from {self.args['resume']} "
                   f"(step {self.state.step})")
+        if self.mesh is not None:
+            self.state = replicate(self.state, self.mesh)
 
         # ImageNet's stream is cropped and flipped on the host: K1 at pad 0
         # with zero draws only normalizes (JAX experiment.py:194-205)
@@ -310,14 +354,15 @@ class ClassificationExperiment(Experiment):
             pad, draws = 0, zero_draws(self.device)
         self.train_step = make_train_step(
             self.model, private=self.private, pad=pad, seed=self.seed,
-            draws=draws, out_dtype=self.out_dtype, device=self.device)
+            draws=draws, out_dtype=self.out_dtype, device=self.device,
+            mesh=self.mesh)
         self.epoch_fn = None
         if self.epoch_scan:
             self._wm_batch = 2  # the reference's trigger batch (dataset.py:188-191)
             self.epoch_fn = make_epoch_train_fn(
                 self.model, self.private, self.batch_size, pad=self.pad,
                 wm_batch=self._wm_batch, seed=self.seed,
-                out_dtype=self.out_dtype, device=self.device)
+                out_dtype=self.out_dtype, device=self.device, mesh=self.mesh)
             self._resident = device_resident(self.train_data.images,
                                              self.train_data.labels,
                                              self.device)
@@ -391,26 +436,35 @@ class ClassificationExperiment(Experiment):
 
     def _batches(self):
         """The epoch's batches. V3 adds a trigger batch of 2 to every task
-        batch (reference trainer.py:115-126), with unit per-sample loss
-        weights: the loss is the mean over the B + 2 samples. On the
-        device-augment path the raw trigger batch rides separately and the
-        train step normalizes and appends it."""
+        batch (reference trainer.py:115-126). On a mesh that total is padded
+        up to the 'batch' axis with more triggers from the cycling iterator
+        at loss weight 0 (JAX experiment.py:442-495), so the loss stays the
+        mean over the B + 2 real samples. On the device-augment path the
+        raw trigger batch rides separately, padded alike, and the train step
+        normalizes and appends it."""
         wm_source = self.wm_data_raw if self.device_augment else self.wm_data
         wm_iter = CyclingIterator(wm_source) if wm_source else None
         for batch in self.train_data:
             if wm_iter is not None:
                 wb = wm_iter.next()
-                n = len(batch["image"]) + len(wb["image"])
+                images, labels = [wb["image"]], [wb["label"]]
+                real = len(batch["image"]) + len(wb["image"])
+                pad = (-real) % self.n_shards
+                weight = np.ones(real + pad, np.float32)
+                weight[real:] = 0.0
+                while pad > 0:
+                    extra = wm_iter.next()
+                    images.append(extra["image"][:pad])
+                    labels.append(extra["label"][:pad])
+                    pad -= len(extra["image"][:pad])
                 if self.device_augment:
-                    batch = {**batch, "wm_image": wb["image"],
-                             "wm_label": wb["label"]}
+                    batch = {**batch, "wm_image": np.concatenate(images),
+                             "wm_label": np.concatenate(labels)}
                 else:
                     batch = {
-                        "image": np.concatenate([batch["image"],
-                                                 wb["image"]]),
-                        "label": np.concatenate([batch["label"],
-                                                 wb["label"]])}
-                batch["weight"] = np.ones(n, np.float32)
+                        "image": np.concatenate([batch["image"], *images]),
+                        "label": np.concatenate([batch["label"], *labels])}
+                batch["weight"] = weight
             yield batch
 
     def _train_epoch(self, ep: int) -> Dict:
@@ -469,6 +523,10 @@ class ClassificationExperiment(Experiment):
         """asynchronous=True copies the state to the host and writes it from
         a worker thread (utils/checkpoint.py::AsyncCheckpointer)."""
         path = os.path.join(self.logdir, "models", name)
+        if self.mesh is not None:
+            # collective: rank 0 writes, every rank waits for the file
+            save_state_multihost(path, self.state)
+            return
         if asynchronous:
             if not hasattr(self, "_async_ckpt"):
                 self._async_ckpt = AsyncCheckpointer()
@@ -512,9 +570,10 @@ class ClassificationExperiment(Experiment):
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             metrics = self._train_epoch(ep)
-        os.makedirs(os.path.join(self.logdir, "profile"), exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.logdir, "profile",
-                                              "trace.json"))
+        if self.writer:
+            os.makedirs(os.path.join(self.logdir, "profile"), exist_ok=True)
+            prof.export_chrome_trace(os.path.join(self.logdir, "profile",
+                                                  "trace.json"))
         return metrics
 
     def training(self):

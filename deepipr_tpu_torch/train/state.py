@@ -9,6 +9,8 @@ holds the momentum, and a step updates all of them in place.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 from torch import nn
 
@@ -25,6 +27,11 @@ class TrainState:
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = step
+        # tensor parallelism (parallel/mesh.py::shard_model_parallel): the
+        # parameters this rank holds a slice of, name -> sharded dim, and
+        # the mesh they are sharded over
+        self.model_sharded: Dict[str, int] = {}
+        self.mesh = None
 
     @classmethod
     def create(cls, model: nn.Module, learning_rate: Schedule,

@@ -20,6 +20,7 @@ back once at the end.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
     Tuple
 
@@ -37,7 +38,18 @@ from deepipr_tpu_torch.data.device_augment import (
 from deepipr_tpu_torch.models.alexnet import DROPOUT_KEEP
 from deepipr_tpu_torch.models.branching import branch_point
 from deepipr_tpu_torch.ops.fused_augment import fused_augment
-from deepipr_tpu_torch.ops.norms import BN_MOMENTUM, BatchNorm
+from deepipr_tpu_torch.ops.norms import (
+    BN_MOMENTUM,
+    BatchNorm,
+    synced_batch_stats,
+)
+from deepipr_tpu_torch.parallel.mesh import (
+    all_reduce_gradients,
+    axis_group,
+    axis_size,
+    batch_rows,
+    gather_model_parallel,
+)
 from deepipr_tpu_torch.passport.codec import bit_accuracy
 from deepipr_tpu_torch.passport.sign_loss import total_sign_loss
 from deepipr_tpu_torch.train.state import TrainState
@@ -126,12 +138,21 @@ def _bn_buffers(modules) -> List[torch.Tensor]:
             for buf in (bn.running_mean, bn.running_var)]
 
 
+def _local_mean(values, weight, denom):
+    """This rank's part of a mean over the global batch: sum(values *
+    weight) / max(denom, 1), with ``denom`` the global sum of the weights
+    (the global row count without weights), a tensor."""
+    if weight is not None:
+        values = values * weight
+    return values.sum() / denom.clamp(min=1.0)
+
+
 def make_train_step(model, private: bool, split_branches: bool = True,
                     pad: Optional[int] = None, remat: str = "none",
                     seed: int = 0, draws: Optional[DrawFn] = None,
                     dropout: Optional[DropoutFn] = None,
                     out_dtype: torch.dtype = torch.float32,
-                    device: DeviceLike = "cuda"):
+                    device: DeviceLike = "cuda", mesh=None):
     """Build the SGD train step for this model and scheme.
 
     Returns step(state, batch) -> (state, metrics), which updates ``state``
@@ -181,6 +202,33 @@ def make_train_step(model, private: bool, split_branches: bool = True,
     the same batch statistics and takes no EMA step (ops/norms.py), and the
     dropout masks are the step's arguments, so updates and running
     statistics are those of remat="none".
+
+    mesh (parallel/mesh.py): the JAX package's step on a mesh, whose
+    numbers are those of one device stepping the whole global batch. Every
+    rank is handed the same global batch and keeps its rows
+    (``batch_rows``, ``P("batch")``'s order): the draws and dropout masks
+    are drawn for the global batch and sliced, and K1 gathers only this
+    rank's rows; on V3's device path the rows run across the task images
+    and the triggers appended to them. Then:
+
+    - train-mode BN takes the global batch's statistics
+      (ops/norms.py::synced_batch_stats);
+    - the CE and the accuracies are this rank's part of the global
+      weighted means, over the global sum of the weights;
+    - the sign loss acts on the replicated passports and weights, so every
+      rank makes the same gradient of it: each adds 1/shards of it, and the
+      sum counts it once;
+    - after ``backward()``, one all-reduce sums every parameter's gradient
+      and the metric parts over the 'batch' group
+      (``all_reduce_gradients``). This is not ``DistributedDataParallel``:
+      the split step runs two forwards before its one backward, which
+      DDP's reducer does not expect, and W10's zero gradients of the
+      parameters a branch never uses must be summed as well;
+    - with a 'model' axis, a state sharded by ``shard_model_parallel``
+      runs its forward on whole weights gathered from the slices
+      (``gather_model_parallel``).
+
+    A mesh of one rank takes the single-process path.
     """
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
@@ -196,67 +244,128 @@ def make_train_step(model, private: bool, split_branches: bool = True,
         draws = draws or seeded_draws(seed, pad, dev)
     dropout = dropout or seeded_dropout(seed, dev)
     dropout_shapes = getattr(model, "dropout_shapes", lambda n: [])
+    if mesh is not None and mesh.size() == 1:
+        mesh = None
+    shards = axis_size(mesh, "batch") if mesh is not None else 1
+
+    def rows(n: int) -> Tuple[int, int]:
+        return batch_rows(n, mesh) if mesh is not None else (0, n)
 
     def inputs(state: TrainState, batch):
-        y = torch.as_tensor(batch["label"], device=dev).long()
+        """(x, y, the global batch's size, this rank's rows [lo, hi))."""
+        labels = batch["label"]
         if pad is None:
-            return nhwc_to_nchw(batch["image"], dev), y
+            lo, hi = rows(len(labels))
+            y = torch.as_tensor(labels[lo:hi], device=dev).long()
+            return (nhwc_to_nchw(batch["image"][lo:hi], dev), y,
+                    len(labels), (lo, hi))
         images = torch.as_tensor(batch["image"], device=dev).contiguous()
         index = batch.get("index")
         if index is None:
             index = torch.arange(images.shape[0], device=dev)
         index = torch.as_tensor(index, device=dev).to(torch.int32)
-        oy, ox, flip = draws(state.step, index.shape[0])
-        x = fused_augment(images, index, oy, ox, flip, mean255, std255, pad,
-                          out_dtype)
+        n_task = index.shape[0]
+        n = n_task + (len(batch["wm_label"]) if "wm_image" in batch else 0)
+        lo, hi = rows(n)
+        # this rank's task rows, then its trigger rows
+        t_lo, t_hi = min(lo, n_task), min(hi, n_task)
+        w_lo, w_hi = max(lo, n_task) - n_task, max(hi, n_task) - n_task
+        oy, ox, flip = draws(state.step, n_task)
+        y = torch.as_tensor(labels, device=dev).long()[t_lo:t_hi]
+        if t_hi > t_lo or mesh is None:
+            x = fused_augment(images, index[t_lo:t_hi], oy[t_lo:t_hi],
+                              ox[t_lo:t_hi], flip[t_lo:t_hi], mean255,
+                              std255, pad, out_dtype)
+        else:  # a rank whose rows are all triggers
+            x = torch.empty((0, images.shape[3], images.shape[1],
+                             images.shape[2]), dtype=out_dtype, device=dev)
         if "wm_image" in batch:
-            wm = torch.as_tensor(batch["wm_image"], device=dev).contiguous()
+            wm = torch.as_tensor(batch["wm_image"][w_lo:w_hi],
+                                 device=dev).contiguous()
             x = torch.cat([x, normalize_device(wm, x.dtype)])
-            y = torch.cat([y, torch.as_tensor(batch["wm_label"],
+            y = torch.cat([y, torch.as_tensor(batch["wm_label"][w_lo:w_hi],
                                               device=dev).long()])
-        return x, y
+        return x, y, n, (lo, hi)
 
     def step(state: TrainState, batch):
         if state.model is not model:
             raise ValueError("the state holds another model than this step's")
+        if getattr(state, "model_sharded", None) and state.mesh is not mesh:
+            raise ValueError("the state is sharded over another mesh than "
+                             "this step's")
         model.train()
-        x, y = inputs(state, batch)
+        x, y, n, (lo, hi) = inputs(state, batch)
         w = batch.get("weight")
         if w is not None:
             w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+            denom = w.sum()
+            w = w[lo:hi]
+        elif mesh is not None:
+            denom = torch.tensor(float(n), device=dev)
 
-        shapes = dropout_shapes(x.shape[0])
-        fwd = {"dropout_masks": dropout(state.step, shapes)} if shapes else {}
+        shapes = dropout_shapes(n)
+        fwd = {}
+        if shapes:
+            fwd["dropout_masks"] = [m[lo:hi] for m in
+                                    dropout(state.step, shapes)]
         if remat == "full":
             fwd["remat"] = True
-
-        if fork is not None:
-            fork_name, _ = fork
-            if prefix_bufs:  # none under the gn, in and none norm types
-                torch._foreach_copy_(snapshot, prefix_bufs)
-            out0 = model(x, ind=0, tap_at=fork_name, **fwd)
-            out1 = model(out0.tap, ind=1, start_at=fork_name, **fwd)
-        elif private:
-            out0 = model(x, ind=0, **fwd)
-            out1 = model(x, ind=1, **fwd)
+        whole = gather_model_parallel(state)
+        if whole:
+            def forward(*args, **kwargs):
+                return functional_call(model, whole, args, kwargs)
         else:
-            out = model(x, **fwd)
-            ce = cross_entropy_mean(out.logits, y, w)
-            sl, sacc = total_sign_loss(collect_aux(out.aux), dev)
-            metrics = {"acc": top1_accuracy(out.logits, y, w)}
-        if private:
-            ce = (cross_entropy_mean(out0.logits, y, w)
-                  + cross_entropy_mean(out1.logits, y, w))
-            sl, sacc = total_sign_loss(collect_aux(out1.aux), dev)
-            metrics = {"acc_public": top1_accuracy(out0.logits, y, w),
-                       "acc_private": top1_accuracy(out1.logits, y, w)}
-        (ce + sl).backward()
+            forward = model
+
+        def ce_of(logits):
+            if mesh is None:
+                return cross_entropy_mean(logits, y, w)
+            return _local_mean(F.cross_entropy(logits, y, reduction="none"),
+                               w, denom)
+
+        def acc_of(logits):
+            if mesh is None:
+                return top1_accuracy(logits, y, w)
+            hit = (logits.argmax(dim=-1) == y).to(torch.float32)
+            return 100.0 * _local_mean(hit, w, denom)
+
+        sync = (synced_batch_stats(axis_group(mesh, "batch"), shards)
+                if shards > 1 else contextlib.nullcontext())
+        with sync:
+            if fork is not None:
+                fork_name, _ = fork
+                if prefix_bufs:  # none under the gn, in and none norm types
+                    torch._foreach_copy_(snapshot, prefix_bufs)
+                out0 = forward(x, ind=0, tap_at=fork_name, **fwd)
+                out1 = forward(out0.tap, ind=1, start_at=fork_name, **fwd)
+            elif private:
+                out0 = forward(x, ind=0, **fwd)
+                out1 = forward(x, ind=1, **fwd)
+            else:
+                out = forward(x, **fwd)
+                ce = ce_of(out.logits)
+                sl, sacc = total_sign_loss(collect_aux(out.aux), dev)
+                metrics = {"acc": acc_of(out.logits)}
+            if private:
+                ce = ce_of(out0.logits) + ce_of(out1.logits)
+                sl, sacc = total_sign_loss(collect_aux(out1.aux), dev)
+                metrics = {"acc_public": acc_of(out0.logits),
+                           "acc_private": acc_of(out1.logits)}
+            # on a mesh every rank makes the same sign-loss gradient; the
+            # gradient sum counts it once
+            (ce + (sl / shards if shards > 1 else sl)).backward()
+        metrics["loss"] = ce
+        if shards > 1:
+            parts = torch.stack([v.detach() for v in metrics.values()])
+            total = all_reduce_gradients(list(model.parameters()), mesh,
+                                         extra=parts)
+            metrics = dict(zip(metrics, total.unbind()))
         if prefix_bufs:
             with torch.no_grad():
                 moved = torch._foreach_sub(prefix_bufs, snapshot)
                 torch._foreach_add_(prefix_bufs, moved, alpha=BN_MOMENTUM)
         state.apply_gradients()
-        metrics.update({"loss": ce, "sign_loss": sl, "sign_acc": sacc})
+        metrics.update({"sign_loss": sl, "sign_acc": sacc})
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

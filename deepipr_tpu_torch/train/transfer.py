@@ -105,7 +105,9 @@ def transfer_learning(exp, init: Optional[Mapping[str, torch.Tensor]] = None
     ``{logdir}/tl_1/history.csv`` beside ``tl_1/models/tl-best.ckpt`` and
     ``tl-last.ckpt``. ``init``: the clone's initial state dict in place of
     its seeded initialization, the source of rtal's fresh classifier (tests
-    hand over the JAX package's, W7)."""
+    hand over the JAX package's, W7). Under ``--multihost`` every rank
+    fine-tunes on the whole batch, as the JAX package's unsharded loop
+    does, and rank 0 alone writes."""
     tl_classes = NUM_CLASSES[exp.tl_dataset]
     tl_model = build_model(exp.arch, tl_classes, exp.norm_type,
                            imagenet=exp.num_classes == 1000,
@@ -141,7 +143,9 @@ def transfer_learning(exp, init: Optional[Mapping[str, torch.Tensor]] = None
     copied_back = copy.deepcopy(exp.model) if backdoor else None
 
     tl_dir = os.path.join(exp.logdir, "tl_1")
-    os.makedirs(os.path.join(tl_dir, "models"), exist_ok=True)
+    writer = exp.writer
+    if writer:
+        os.makedirs(os.path.join(tl_dir, "models"), exist_ok=True)
     history: List[Dict] = []
     best = float("-inf")
     for ep in range(1, exp.epochs + 1):
@@ -169,12 +173,16 @@ def transfer_learning(exp, init: Optional[Mapping[str, torch.Tensor]] = None
         print(f"TL epoch {ep:3d} " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(row.items()) if k != "epoch"))
 
+        if not writer:
+            continue
         if row["valid_acc"] > best:
             best = row["valid_acc"]
             save_state(os.path.join(tl_dir, "models", "tl-best.ckpt"),
                        tl_state)
         save_state(os.path.join(tl_dir, "models", "tl-last.ckpt"), tl_state)
 
+    if not writer:
+        return history
     with open(os.path.join(tl_dir, "history.csv"), "w", newline="") as f:
         cols = sorted({k for r in history for k in r})
         w = csv.writer(f)

@@ -8,9 +8,14 @@ optimizer's state (momentum) and the step counter. Everything is saved as
 CPU tensors with ``torch.save`` and loaded with ``torch.load(...,
 weights_only=True)`` (W8): no pickled code runs at load.
 
-The multi-host and Orbax variants of the JAX module (``save_state_multihost``,
-``load_state_multihost``, ``save_state_orbax``, ``load_state_orbax``) are
-ROADMAP queue 1, item 7.
+Several processes (the JAX module's multi-host half): ``save_state_multihost``
+gathers every tensor-parallel slice into its whole tensor on every rank,
+rank 0 alone writes, and a barrier holds every rank until the file is on
+disk; ``load_state_multihost`` reads the file on every rank and replicates
+rank 0's copy. ``save_state_dcp``/``load_state_dcp`` take the place of the
+JAX module's Orbax pair: ``torch.distributed.checkpoint`` writes a
+directory, each rank its share. Every load is ``weights_only`` and strict
+on passports and signatures (W8).
 """
 
 from __future__ import annotations
@@ -40,9 +45,25 @@ def _to_cpu(tree: Any) -> Any:
 
 
 def snapshot(state: TrainState) -> Dict[str, Any]:
-    """The state as a dict of CPU copies: what a checkpoint file holds."""
-    return _to_cpu({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
+    """The state as a dict of CPU copies: what a checkpoint file holds.
+    A tensor-parallel state's slices are gathered into whole tensors
+    (parallel/mesh.py), collectively over its 'model' group."""
+    model = state.model.state_dict()
+    optimizer = state.optimizer.state_dict()
+    if getattr(state, "model_sharded", None):
+        from deepipr_tpu_torch.parallel.mesh import gathered_tensors
+
+        model = gathered_tensors(state, model)
+        names = [n for n, _ in state.model.named_parameters()]
+        momentum = {names[i]: st["momentum_buffer"]
+                    for i, st in optimizer["state"].items()
+                    if st.get("momentum_buffer") is not None}
+        momentum = gathered_tensors(state, momentum)
+        optimizer["state"] = {
+            i: {**st, "momentum_buffer": momentum[names[i]]}
+            if names[i] in momentum else st
+            for i, st in optimizer["state"].items()}
+    return _to_cpu({"model": model, "optimizer": optimizer,
                     "step": int(state.step)})
 
 
@@ -172,4 +193,115 @@ def load_state(path: str, template: TrainState,
     if restore_opt:
         template.optimizer.load_state_dict(data["optimizer"])
         template.step = int(data["step"])
+    return template
+
+
+# --------------------------------------------------------------------------
+# several processes
+# --------------------------------------------------------------------------
+
+def _process_group_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def save_state_multihost(path: str, state: TrainState) -> None:
+    """Rank 0 writes the checkpoint; collective: every rank calls it.
+
+    Counterpart of the JAX module's ``save_state_multihost``. Every rank
+    takes the snapshot (a tensor-parallel state's slices are gathered into
+    whole tensors, a collective over its 'model' group), rank 0 alone
+    writes it with ``save_state``'s atomic write, and a barrier keeps every
+    rank from reading the file before it is there. With one process it is
+    ``save_state``."""
+    if _process_group_size() == 1:
+        save_state(path, state)
+        return
+    import torch.distributed as dist
+
+    snap = snapshot(state)
+    if dist.get_rank() == 0:
+        _write(path, snap)
+    dist.barrier()
+
+
+def load_state_multihost(path: str, template: TrainState, mesh=None,
+                         restore_opt: bool = True) -> TrainState:
+    """Every rank reads the checkpoint into ``template`` (``load_state``),
+    then, with a mesh, ``replicate``s rank 0's copy; a tensor-parallel
+    caller shards the result afterwards (``shard_model_parallel``). The
+    template must be unsharded. Counterpart of the JAX module's
+    ``load_state_multihost``."""
+    state = load_state(path, template, restore_opt=restore_opt)
+    if mesh is not None:
+        from deepipr_tpu_torch.parallel.mesh import replicate
+
+        state = replicate(state, mesh)
+    return state
+
+
+def _dcp_entries(snap: Dict[str, Any], names) -> Dict[str, torch.Tensor]:
+    """A snapshot as the flat, name-keyed tensor dict the directory
+    checkpoint holds: 'model/<entry>', 'momentum/<parameter>', 'step'."""
+    out = {f"model/{k}": v for k, v in snap["model"].items()}
+    for i, st in snap["optimizer"]["state"].items():
+        if st.get("momentum_buffer") is not None:
+            out[f"momentum/{names[i]}"] = st["momentum_buffer"]
+    out["step"] = torch.tensor(snap["step"], dtype=torch.int64)
+    return out
+
+
+def save_state_dcp(directory: str, state: TrainState) -> None:
+    """Write the state as a ``torch.distributed.checkpoint`` directory: the
+    counterpart of the JAX module's ``save_state_orbax``. Collective in a
+    process group (every rank calls it; replicated entries are written
+    once); a tensor-parallel state is gathered first, as
+    ``save_state_multihost`` does."""
+    import torch.distributed.checkpoint as dcp
+
+    names = [n for n, _ in state.model.named_parameters()]
+    dcp.save(_dcp_entries(snapshot(state), names),
+             checkpoint_id=os.path.abspath(directory),
+             no_dist=_process_group_size() == 1)
+
+
+def load_state_dcp(directory: str, template: TrainState,
+                   restore_opt: bool = True) -> TrainState:
+    """Read a ``save_state_dcp`` directory into ``template`` (unsharded; in
+    place, on its device) and return it: the counterpart of the JAX
+    module's ``load_state_orbax``. The model entries are held to the template as
+    ``load_state`` holds them (W8); ``restore_opt`` restores the momentum
+    and the step counter."""
+    import torch.distributed.checkpoint as dcp
+
+    directory = os.path.abspath(directory)
+    meta = dcp.FileSystemReader(directory).read_metadata()
+    entries = {}
+    for key, md in meta.state_dict_metadata.items():
+        if not hasattr(md, "size"):
+            raise ValueError(f"checkpoint {directory}: {key} is not a tensor")
+        entries[key] = torch.empty(tuple(md.size),
+                                   dtype=md.properties.dtype)
+    dcp.load(entries, checkpoint_id=directory,
+             no_dist=_process_group_size() == 1)
+    model = {k[len("model/"):]: v for k, v in entries.items()
+             if k.startswith("model/")}
+    load_model_entries(template.model, model, f"checkpoint {directory}",
+                       "load_state_dcp")
+    if restore_opt:
+        params = dict(template.model.named_parameters())
+        momentum = {k[len("momentum/"):]: v for k, v in entries.items()
+                    if k.startswith("momentum/")}
+        unknown = sorted(set(momentum) - set(params))
+        if unknown:
+            raise ValueError(f"checkpoint {directory}: momentum of "
+                             f"parameters the model lacks: {unknown}")
+        template.optimizer.state.clear()
+        with torch.no_grad():
+            for name, buf in momentum.items():
+                p = params[name]
+                template.optimizer.state[p] = {
+                    "momentum_buffer": buf.to(p.device).clone()}
+        template.step = int(entries["step"])
     return template

@@ -312,12 +312,34 @@ def test_prepare_dataset_matches_jax(data_root, numpy_jax, name):
 
 
 def test_prepare_dataset_refuses_download_and_multihost(data_root):
+    """--download is refused. --multihost no longer is: under it ImageNet
+    streams this rank's share (the next test)."""
     with pytest.raises(NotImplementedError, match="local files"):
         datasets.prepare_dataset(prepare_args(data_root, "cifar10",
                                               download=True))
-    with pytest.raises(NotImplementedError, match="item 1"):
-        datasets.prepare_dataset(prepare_args(data_root, "imagenet1000",
-                                              multihost=True))
+
+
+def test_imagenet_multihost_reads_the_strided_share(data_root, numpy_jax,
+                                                    monkeypatch):
+    """Rank 1 of a 2-rank world streams the strided share of the training
+    folder that JAX's process 1 of 2 streams (datasets.py:557-567), batch
+    for batch; the validation stream stays whole."""
+    import jax
+
+    from deepipr_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(distributed, "world", lambda: 2)
+    monkeypatch.setattr(distributed, "rank", lambda: 1)
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    monkeypatch.setattr(jax, "process_index", lambda: 1)
+    args = prepare_args(data_root, "imagenet1000", multihost=True)
+    got_train, got_test = datasets.prepare_dataset(args)
+    want_train, want_test = jax_datasets.prepare_dataset(args)
+    assert (got_train.num_shards, got_train.shard_id) == (2, 1)
+    assert (got_test.num_shards, got_test.shard_id) == (1, 0)
+    assert len(got_train) == len(want_train)
+    assert_same_batches(got_train, want_train)
+    assert_same_batches(got_test, want_test)
 
 
 def test_missing_caltech_names_what_to_place(tmp_path):

@@ -310,15 +310,22 @@ def test_nan_guard_halts_with_actionable_message(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", ["multihost", "download", "imagenet1000",
                                   "caltech-101"])
 def test_unported_paths_raise_naming_their_item(tmp_path, flag):
-    """--multihost and --download raise. The ImageNet and Caltech
-    datasets, which raised here until their loaders were ported, now build
-    the experiment on the CPU from a tiny folder."""
+    """--download raises. --multihost, the ImageNet and Caltech datasets,
+    which raised here until they were ported, now build the experiment on
+    the CPU: --multihost without a process group of several ranks is the
+    single-process experiment (no mesh); the datasets from a tiny
+    folder."""
     from test_torch_port_data import write_class_folders, write_imagenet
 
-    if flag in ("multihost", "download"):
-        with pytest.raises(NotImplementedError, match="ROADMAP|local files"):
+    if flag == "download":
+        with pytest.raises(NotImplementedError, match="local files"):
             experiment.ClassificationExperiment(
                 base_args(tmp_path, **{flag: True}), "cpu")
+        return
+    if flag == "multihost":
+        exp = experiment.ClassificationExperiment(
+            base_args(tmp_path, multihost=True), "cpu")
+        assert exp.mesh is None and exp.n_shards == 1 and exp.writer
         return
     if flag == "imagenet1000":
         write_imagenet(tmp_path / "data")
