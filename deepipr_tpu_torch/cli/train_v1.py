@@ -11,7 +11,8 @@ on --tl-dataset and records signature survival (train/transfer.py);
 .pth/.pt. ``--dataset caltech-101/caltech-256`` reads class folders (or
 the reference's archive) under ``--data-root``/<dataset>, and
 ``--dataset imagenet1000`` streams ``--data-root``/ILSVRC2012/{train,val}.
---download (the port reads local files only) raises NotImplementedError.
+--download fetches a missing CIFAR or Caltech archive (or the trigger
+set) from its published URL before extracting it.
 
 ``--multihost`` trains data-parallel over the processes of a
 ``torch.distributed`` group (parallel/), set up from torchrun's variables
@@ -73,7 +74,9 @@ def build_parser():
                         "class from a fixed seed, or the reference's first "
                         "80 %% in sorted file order")
     p.add_argument("--download", action="store_true", default=False,
-                   help="refused: the port reads local files only")
+                   help="fetch + extract missing Caltech archives "
+                        "(reference dataset.py:89-130; needs egress — "
+                        "without it a pre-placed archive is auto-extracted)")
     p.add_argument("--logdir", default="logs")
     p.add_argument("--workers", type=int, default=16,
                    help="decode threads for the streaming ImageNet loader")

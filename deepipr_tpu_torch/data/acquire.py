@@ -1,18 +1,20 @@
-"""Dataset archives on local disk: location and hardened extraction.
+"""Dataset archives: location, hardened extraction, and gated download.
 
-Counterpart of the local half of ``deepipr_tpu/data/acquire.py``, kept as a
-copy (the port imports nothing of the JAX package). The reference's Caltech
-classes (dataset.py:14-139) untar ``101_ObjectCategories.tar.gz`` /
-``256_ObjectCategories.tar`` into ``root`` before indexing
-``root/<foldername>/<class>/<img>``; the port takes such an archive, or the
-extracted tree, from where it was placed:
+Counterpart of ``deepipr_tpu/data/acquire.py``, kept as a copy (the port
+imports nothing of the JAX package). The reference's Caltech classes
+(dataset.py:14-139) download ``101_ObjectCategories.tar.gz`` /
+``256_ObjectCategories.tar`` into ``root`` and untar them there before
+indexing ``root/<foldername>/<class>/<img>``; the port takes such an
+archive, or the extracted tree, from where it was placed:
 
     data/caltech-101/101_ObjectCategories.tar.gz   -> extracted in place
     data/caltech-101/101_ObjectCategories/...      -> used directly
 
 The same holds for the CIFAR archives and the WatermarkNN trigger set.
-Nothing is downloaded: ``allow_download=True`` raises, as ``--download``
-does. Extraction refuses absolute paths, ``..`` components, links that
+The network leg is opt-in: with ``allow_download=True`` (``--download``) a
+missing archive is fetched from its published URL (``download_url``, with
+the reference's https -> http retry), then extracted through the same
+checks. Extraction refuses absolute paths, ``..`` components, links that
 escape the destination and device members.
 """
 
@@ -23,10 +25,6 @@ import tarfile
 import warnings
 from dataclasses import dataclass
 from typing import Optional
-
-DOWNLOAD_REFUSED = ("--download is refused: the port reads datasets from "
-                    "local files only and needs no network")
-
 
 @dataclass(frozen=True)
 class ArchiveSpec:
@@ -80,11 +78,6 @@ _WM_ARCHIVE_NAMES = (
     "trigger_set.tar.gz", "trigger_set.tar", "trigger_set.zip",
     "WatermarkNN.tar.gz", "WatermarkNN.zip", "master.tar.gz",
 )
-
-
-def _refuse_download(allow_download: bool) -> None:
-    if allow_download:
-        raise NotImplementedError(DOWNLOAD_REFUSED)
 
 
 def _check_member(member: tarfile.TarInfo, dest: str) -> None:
@@ -141,13 +134,32 @@ def extract_archive(archive_path: str, dest: str, *,
         tar.extractall(dest, members=kept, filter="data")
 
 
+def download_url(url: str, fpath: str) -> None:
+    """Fetch ``url`` to ``fpath``, retrying an https URL over http as the
+    reference does (dataset.py:107-130). Called only under
+    ``allow_download=True``."""
+    from urllib import request
+
+    os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
+    try:
+        print(f"Downloading {url} to {fpath}")
+        request.urlretrieve(url, fpath)
+    except OSError:  # URLError and HTTPError among them
+        if not url.startswith("https:"):
+            raise
+        alt = url.replace("https:", "http:", 1)
+        print(f"Failed download. Trying https -> http instead. "
+              f"Downloading {alt} to {fpath}")
+        request.urlretrieve(alt, fpath)
+
+
 def prepare_archive(root: str, name_or_spec, *,
                     allow_download: bool = False) -> str:
     """``root/<foldername>``, extracted from ``root/<filename>`` if it is
-    not there yet (reference dataset.py:89-105); FileNotFoundError with
-    placement instructions when neither is. ``name_or_spec``: an
+    not there yet (reference dataset.py:89-105), the archive fetched first
+    under ``allow_download``; FileNotFoundError with placement instructions
+    when neither is there and nothing may be fetched. ``name_or_spec``: an
     ``ARCHIVES`` key or an ``ArchiveSpec``."""
-    _refuse_download(allow_download)
     spec = (ARCHIVES[name_or_spec] if isinstance(name_or_spec, str)
             else name_or_spec)
     folder = os.path.join(root, spec.foldername)
@@ -155,10 +167,13 @@ def prepare_archive(root: str, name_or_spec, *,
         return folder
     fpath = os.path.join(root, spec.filename)
     if not os.path.exists(fpath):
-        raise FileNotFoundError(
-            f"{folder} not found and {spec.filename} is not present in "
-            f"{root}. Place the archive there (or the extracted "
-            f"{spec.foldername}/ tree); it is published at {spec.url}.")
+        if not allow_download:
+            raise FileNotFoundError(
+                f"{folder} not found and {spec.filename} is not present in "
+                f"{root}. Place the archive there (or the extracted "
+                f"{spec.foldername}/ tree), or pass --download / "
+                f"allow_download=True to fetch {spec.url}.")
+        download_url(spec.url, fpath)
     extract_archive(fpath, root)
     if not os.path.isdir(folder):
         raise FileNotFoundError(
@@ -173,8 +188,7 @@ def locate_caltech(root: str, dataset: str, *,
     under ``root`` (e.g. data/caltech-101): ``root/<foldername>`` (the
     reference's layout, dataset.py:43-48, extracted from its archive if
     needed), or ``root`` itself when it holds class folders and no archive.
-    None when neither is there."""
-    _refuse_download(allow_download)
+    None when neither is there and nothing may be fetched."""
     spec = ARCHIVES[dataset]
     if os.path.isdir(root):
         entries = os.listdir(root)
@@ -188,8 +202,10 @@ def locate_caltech(root: str, dataset: str, *,
                         for e in entries)):
             return root
     try:
-        return prepare_archive(root, spec)
+        return prepare_archive(root, spec, allow_download=allow_download)
     except FileNotFoundError:
+        if allow_download:
+            raise
         return None
 
 
@@ -197,16 +213,19 @@ def locate_cifar(root: str, name: str, *,
                  allow_download: bool = False) -> Optional[str]:
     """``root`` (e.g. data/cifar10) once it holds ``cifar-10-batches-py/``
     or ``cifar-100-python/``, extracting a placed
-    ``cifar-10(0)-python.tar.gz`` there if needed; None when neither is
-    there."""
-    _refuse_download(allow_download)
+    ``cifar-10(0)-python.tar.gz`` there if needed, fetched from
+    torchvision's URL under ``allow_download`` (reference
+    dataset.py:262-267); None when neither is there and nothing may be
+    fetched."""
     spec = ARCHIVES[name]
     if os.path.isdir(os.path.join(root, spec.foldername)):
         return root
     try:
-        prepare_archive(root, spec)
+        prepare_archive(root, spec, allow_download=allow_download)
         return root
     except FileNotFoundError:
+        if allow_download:
+            raise
         return None
 
 
@@ -250,9 +269,10 @@ def locate_trigger_set(base: str = "data/trigger_set", *,
     found under ``base`` (reference dataset.py:168-174) at any depth, else
     extracted into ``base`` from a placed archive in ``base`` or its parent
     (trigger_set.tar.gz / .zip, or a WatermarkNN repository tarball, of
-    which only data/trigger_set/ is extracted). An archive named like one
-    that lists no trigger set is passed over with a warning."""
-    _refuse_download(allow_download)
+    which only data/trigger_set/ is extracted), else under
+    ``allow_download`` the WatermarkNN repository tarball fetched from
+    GitHub. An archive named like one that lists no trigger set is passed
+    over with a warning."""
     if os.path.isdir(base):
         found = _find_trigger_set(base)
         if found:
@@ -276,4 +296,10 @@ def locate_trigger_set(base: str = "data/trigger_set", *,
         found = _find_trigger_set(base)
         if found:
             return found
+    if allow_download:
+        os.makedirs(base, exist_ok=True)
+        fpath = os.path.join(base, WATERMARKNN.filename)
+        download_url(WATERMARKNN.url, fpath)
+        extract_archive(fpath, base, only_under="/data/trigger_set/")
+        return _find_trigger_set(base)
     return None

@@ -13,7 +13,8 @@ augmented on the host by the NumPy path of the JAX package, draw for draw
 ImageNet is streamed from its class folders (``StreamingImageFolder``,
 :196-243). Images decode with PIL, imported when a loader is called.
 Every set is read from local files, archives already on disk included
-(``data/acquire.py``): nothing is downloaded.
+(``data/acquire.py``); under ``--download`` a missing archive is fetched
+first.
 """
 
 from __future__ import annotations
@@ -464,8 +465,8 @@ def prepare_dataset(args: Dict):
         if droot is None:
             raise FileNotFoundError(
                 f"{ds} not found under {os.path.join(root, ds)}; place the "
-                "extracted class folders or the reference archive there "
-                "(reference dataset.py:89-130)")
+                "extracted class folders or the reference archive there, "
+                "or pass --download (reference dataset.py:89-130)")
         tx, ty, vx, vy = load_caltech(
             droot, 101 if ds == "caltech-101" else 256,
             split=args.get("caltech_split", "shuffled"))
@@ -507,8 +508,9 @@ def prepare_wm(datapath: str = "data/trigger_set/pics", crop: int = 32,
     """Trigger-set loader: WatermarkNN layout (``datapath`` of images beside
     ``labels-cifar.txt``), center-cropped, batch 2, drop_last. Where that
     is not there, a trigger-set archive placed in its parent directory or
-    above is extracted (``acquire.locate_trigger_set``). Reads local files
-    only; imports PIL when called."""
+    above is extracted (``acquire.locate_trigger_set``), or under
+    ``allow_download`` the WatermarkNN repository tarball is fetched and
+    extracted. Imports PIL when called."""
     from PIL import Image
 
     labelpath = os.path.join(os.path.dirname(datapath), "labels-cifar.txt")

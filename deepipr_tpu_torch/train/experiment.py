@@ -39,8 +39,8 @@ the checkpoints (``save_state_multihost``); every rank evaluates, as the
 JAX package's replicated evaluation does. With one rank the experiment is
 the single-process one, bit for bit.
 
-Not ported: ``--download`` raises ``NotImplementedError`` (the port reads
-local files only).
+``--download`` fetches a missing CIFAR or Caltech archive or the trigger
+set (``data/acquire.py``) before extracting it.
 """
 
 from __future__ import annotations
@@ -54,7 +54,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from deepipr_tpu_torch.data.acquire import DOWNLOAD_REFUSED
 from deepipr_tpu_torch.data.datasets import (
     CyclingIterator,
     DataLoader,
@@ -128,12 +127,6 @@ def derive_scheme(args: Dict) -> int:
     if args.get("train_private") and args.get("train_backdoor"):
         return 3
     return 0
-
-
-def _unported(args: Dict) -> None:
-    """Raise for the flags the port does not run."""
-    if args.get("download"):
-        raise NotImplementedError(DOWNLOAD_REFUSED)
 
 
 class Experiment:
@@ -245,7 +238,6 @@ class ClassificationExperiment(Experiment):
     """
 
     def __init__(self, args: Dict, device: DeviceLike = "cuda"):
-        _unported(args)
         super().__init__(args)
         self.device = resolve_device(device)
         self.private = self.scheme in (2, 3)

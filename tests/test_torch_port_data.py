@@ -311,12 +311,22 @@ def test_prepare_dataset_matches_jax(data_root, numpy_jax, name):
     assert_same_batches(got_test, want_test)
 
 
-def test_prepare_dataset_refuses_download_and_multihost(data_root):
-    """--download is refused. --multihost no longer is: under it ImageNet
-    streams this rank's share (the next test)."""
-    with pytest.raises(NotImplementedError, match="local files"):
-        datasets.prepare_dataset(prepare_args(data_root, "cifar10",
-                                              download=True))
+def test_prepare_dataset_refuses_download_and_multihost(tmp_path, published,
+                                                      numpy_jax):
+    """--download fetches: ``prepare_dataset`` with download on a data
+    root without CIFAR-10 fetches the archive from its (``file://``) URL,
+    extracts it and loads it, batch for batch as the JAX package's
+    ``prepare_dataset`` loads the extracted set. (--multihost is no
+    refusal either: under it ImageNet streams this rank's share, the next
+    test.)"""
+    root = tmp_path / "fresh"
+    args = prepare_args(root, "cifar10", download=True)
+    got_train, got_test = datasets.prepare_dataset(args)
+    assert os.path.exists(root / "cifar10" / "cifar-10-python.tar.gz")
+    want_train, want_test = jax_datasets.prepare_dataset(
+        {**args, "download": False})
+    assert_same_batches(got_train, want_train, epochs=2)
+    assert_same_batches(got_test, want_test)
 
 
 def test_imagenet_multihost_reads_the_strided_share(data_root, numpy_jax,
@@ -514,6 +524,57 @@ def test_locate_cifar_extracts_a_placed_archive(tmp_path):
         acquire.prepare_archive(str(tmp_path / "x"), "cifar100")
 
 
+def write_trigger_set(root, num=4, seed=0):
+    """``root/{pics/<i>.png, labels-cifar.txt}``: the WatermarkNN layout."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "pics"), exist_ok=True)
+    for i in range(num):
+        Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+                        ).save(os.path.join(root, "pics", f"{i:03d}.png"))
+    np.savetxt(os.path.join(root, "labels-cifar.txt"),
+               rng.integers(0, 10, num), fmt="%d")
+    return str(root)
+
+
+def _tar(path, folder, arcname):
+    with tarfile.open(path, "w:gz" if path.endswith(".gz") else "w") as tar:
+        tar.add(folder, arcname=arcname)
+    return path
+
+
+@pytest.fixture
+def published(tmp_path, monkeypatch):
+    """The archives ``acquire`` fetches, written here and published as
+    ``file://`` URLs: CIFAR-10 (tools/make_cifar_archive.py), a
+    Caltech-101 tarball of class folders, and a WatermarkNN repository
+    tarball holding data/trigger_set/. ``acquire.ARCHIVES`` and
+    ``acquire.WATERMARKNN`` name those URLs; nothing reaches a network.
+    Returns {name: archive path}."""
+    import dataclasses
+
+    src = tmp_path / "published"
+    make_cifar_archive.main(["--name", "cifar10", "--out", str(src),
+                             "--train", "20", "--test", "5"])
+    write_class_folders(str(src / "stage" / "101_ObjectCategories"))
+    write_trigger_set(str(src / "stage" / "WatermarkNN-master" / "data"
+                          / "trigger_set"))
+    paths = {
+        "cifar10": str(src / "cifar-10-python.tar.gz"),
+        "caltech-101": _tar(str(src / "101_ObjectCategories.tar.gz"),
+                            str(src / "stage" / "101_ObjectCategories"),
+                            "101_ObjectCategories"),
+        "watermarknn": _tar(str(src / "WatermarkNN.tar.gz"),
+                            str(src / "stage" / "WatermarkNN-master"),
+                            "WatermarkNN-master"),
+    }
+    for name in ("cifar10", "caltech-101"):
+        monkeypatch.setitem(acquire.ARCHIVES, name, dataclasses.replace(
+            acquire.ARCHIVES[name], url=f"file://{paths[name]}"))
+    monkeypatch.setattr(acquire, "WATERMARKNN", dataclasses.replace(
+        acquire.WATERMARKNN, url=f"file://{paths['watermarknn']}"))
+    return paths
+
+
 @pytest.mark.parametrize("call", [
     lambda d: acquire.prepare_archive(d, "caltech-101", allow_download=True),
     lambda d: acquire.locate_caltech(d, "caltech-101", allow_download=True),
@@ -523,9 +584,31 @@ def test_locate_cifar_extracts_a_placed_archive(tmp_path):
                                   allow_download=True),
 ], ids=["prepare_archive", "locate_caltech", "locate_cifar",
         "locate_trigger_set", "prepare_wm"])
-def test_allow_download_is_refused(tmp_path, call):
-    with pytest.raises(NotImplementedError, match="--download is refused"):
-        call(str(tmp_path))
+def test_allow_download_is_refused(tmp_path, published, numpy_jax, call):
+    """Each entry point under allow_download=True, on an empty directory:
+    the archive is fetched from its (``file://``) URL into the directory
+    and extracted there, and what it returns is what the JAX package's
+    counterpart returns from the same directory afterwards (prepare_wm:
+    the same batches)."""
+    d = str(tmp_path / "data")
+    got = call(d)
+    fetched = [f for _, _, files in os.walk(d) for f in files
+               if f.endswith(".tar.gz")]
+    assert len(fetched) == 1, fetched
+    if isinstance(got, datasets.DataLoader):
+        assert_same_batches(got, jax_datasets.prepare_wm(
+            os.path.join(d, "t", "pics")))
+    elif isinstance(got, tuple):
+        assert got == jax_acquire.locate_trigger_set(d)
+        assert sorted(os.listdir(got[0])) == [f"{i:03d}.png"
+                                              for i in range(4)]
+    elif got.endswith("101_ObjectCategories"):
+        assert got == jax_acquire.locate_caltech(d, "caltech-101")
+        assert sorted(os.listdir(got)) == [f"class_{c:03d}"
+                                           for c in range(3)]
+    else:
+        assert got == jax_acquire.locate_cifar(d, "cifar10") == d
+        assert os.path.isdir(os.path.join(d, "cifar-10-batches-py"))
 
 
 # ------------------------------------------------------ the experiment

@@ -5,6 +5,8 @@ checkpoint round trip, pretrained loading and resume; scheme derivation,
 the expid, the failure guards and the CLI's parser.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -47,6 +49,7 @@ from deepipr_tpu_torch.utils.checkpoint import (
 )
 from deepipr_tpu_torch.utils.config import mark_separate_stats
 
+from test_torch_port_data import published  # noqa: F401 (a fixture)
 from test_torch_port_model import CONFIGS, RNGS, numpy_variables
 
 SIDE = 16
@@ -309,18 +312,25 @@ def test_nan_guard_halts_with_actionable_message(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["multihost", "download", "imagenet1000",
                                   "caltech-101"])
-def test_unported_paths_raise_naming_their_item(tmp_path, flag):
-    """--download raises. --multihost, the ImageNet and Caltech datasets,
-    which raised here until they were ported, now build the experiment on
-    the CPU: --multihost without a process group of several ranks is the
-    single-process experiment (no mesh); the datasets from a tiny
+def test_unported_paths_raise_naming_their_item(tmp_path, request, flag):
+    """--download, --multihost, the ImageNet and Caltech datasets, which
+    raised here until they were ported, now build the experiment on the
+    CPU: --download fetches CIFAR-10 from its (``file://``) URL into an
+    empty data root; --multihost without a process group of several ranks
+    is the single-process experiment (no mesh); the datasets from a tiny
     folder."""
     from test_torch_port_data import write_class_folders, write_imagenet
 
     if flag == "download":
-        with pytest.raises(NotImplementedError, match="local files"):
-            experiment.ClassificationExperiment(
-                base_args(tmp_path, **{flag: True}), "cpu")
+        request.getfixturevalue("published")
+        exp = experiment.ClassificationExperiment(
+            base_args(tmp_path, download=True, dataset="cifar10",
+                      data_root=str(tmp_path / "data"), batch_size=4),
+            "cpu")
+        assert os.path.isdir(tmp_path / "data" / "cifar10"
+                             / "cifar-10-batches-py")
+        batch = next(iter(exp._batches()))
+        assert batch["image"].shape == (4, 32, 32, 3)
         return
     if flag == "multihost":
         exp = experiment.ClassificationExperiment(
