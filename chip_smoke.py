@@ -171,9 +171,23 @@ a scale that crosses zero for a few steps of a high-lr epoch lowers it,
 in the JAX package as in the port, from the same state with the same
 draws (PERF.md §6).
 
+20. The host augment (``host_augment``, after phase 3 in the run):
+    ``deepipr_tpu_torch/csrc/augment.cpp`` built with g++ (``-O3
+    -march=native``, data/native.py's ``get_lib``) on the card's host; data/native.py's
+    ``augment_normalize_native`` (the host-fed training batch of 256 at pad
+    4 with every extreme draw, the trigger set's pair at pad 0) and
+    ``normalize_native`` (the CIFAR validation batch, the ImageNet stream's
+    64x224x224x3) against their plain versions within HOST_TOL, padding
+    and flip positions exact, and both timed on the host. The native calls
+    are counted on every host-fed path (HOST_FED: phase 17's host-fed
+    ResNet18Private epoch and Caltech-101 TL, phase 12's TL runs, phase
+    16's fleet and two servers), each set to 0 just before the path and
+    read just after; a path without them fails the run.
+
 Each phase's wall time is printed on a line of its own.
 
-The line before the last holds the kernels' JSON record; the last line is
+The line before the last holds the kernels' JSON record, and the line
+before it the host kernel's (``{"host_kernels": [...]}``); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits with
 an error before printing any result.
 """
@@ -428,6 +442,28 @@ NORM_CASES = (("gn", False), ("in", False), ("none", False), ("bn", True))
 DATA_DIR = os.path.join("build", "chip_smoke_data")
 DATA_CLASSES, DATA_TRAIN, DATA_VAL, DATA_PX = 10, 64, 16, 256
 CALTECH_PER_CLASS = 10
+# the host augment (host_augment): data/native.py's C++ against its plain
+# versions (the JAX package's NumPy path). The float values within
+# HOST_TOL: one fused multiply-add against a divide and a subtract, 4.77e-7
+# apart at most over every byte value and channel (the CPU tests' bound);
+# where a pixel is padding and where it is flipped, exactly. The shapes:
+# the host-fed CIFAR training and validation batches, the trigger set's
+# pair, the ImageNet stream's normalized batch; host milliseconds, median
+# of HOST_REPS calls (HOST_REPS_LARGE at 224 px)
+HOST_TOL = dict(rtol=0.0, atol=1e-6)
+HOST_REPS, HOST_REPS_LARGE = 20, 5
+# {path: native calls on it}, the counts set to 0 just before the path
+# (native_reset) and read just after (native_calls)
+HOST_CALLS: dict = {}
+# the host-fed paths and the native functions each must call
+HOST_FED = {
+    "data_resnet_host_f32": ("normalize_native", "augment_normalize_native"),
+    "data_caltech_tl": ("normalize_native", "augment_normalize_native"),
+    "transfer": ("normalize_native", "augment_normalize_native"),
+    "fleet": ("normalize_native",),
+    "http_folded": ("normalize_native",),
+    "http_alexnet_v1": ("normalize_native",),
+}
 # the parallel path (parallel_path): PARALLEL_RANKS gloo ranks on the one
 # card (NCCL refuses two ranks on one GPU); a set of two V2 and two V3
 # steps at batch 256, a trigger set of 8, a fleet of two; the entry point
@@ -2165,6 +2201,7 @@ def transfer_path(bests: dict, smi: str, launches, reset) -> dict:
     logdir = os.path.join("build", "chip_smoke_tl")
     counts = {}
     seconds = {}
+    native_reset()
     for label, (arch, scheme, best) in bests.items():
         main = train_v1 if scheme == 1 else train_v23
         flags = {1: ["--train-passport"], 2: [],
@@ -2219,6 +2256,7 @@ def transfer_path(bests: dict, smi: str, launches, reset) -> dict:
                 raise AssertionError(f"TL {label} {tl_scheme} launches {got}, "
                                      f"expected {want}")
             del exp
+    HOST_CALLS["transfer"] = native_calls()
     log(f"transfer learning: seconds an epoch {seconds} [{smi}]")
     tl_parity(bests["ResNet18Private V2"][2])
     tl_parity(bests["ResNet18Private V3"][2], ["--train-backdoor"])
@@ -2953,19 +2991,24 @@ def export_path(members: list) -> None:
         f"{verdict['detection_rate']}")
 
 
-def http_path(name: str, argv: list, smi: str) -> dict:
+def http_path(name: str, argv: list, smi: str, counted: str) -> dict:
     """cli.serve_http (``argv``) in a thread of this process: requests of
     SERVE_ROWS rows in uint8 and normalized, each answer equal to an
     in-process Predictor's on the same padded batch (and on the unpadded
     rows); 8 concurrent requests as their serial twins; /healthz, a bad
     shape (400) and 257 rows (413); then the median latency_ms of each
-    bucket. Returns {bucket: median ms}."""
+    bucket. The server's native calls (it normalizes each uint8 request)
+    go into HOST_CALLS[counted]: the rows compared are normalized before
+    the count starts. Returns {bucket: median ms}."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
     from deepipr_tpu_torch.cli import serve_http
     from deepipr_tpu_torch.data.datasets import normalize, synthetic_dataset
 
+    _, _, images, _ = synthetic_dataset(num_train=0, num_test=512, seed=23)
+    normalized = {rows: normalize(images[:rows]) for rows in SERVE_ROWS}
+    native_reset()
     args = serve_http.build_parser().parse_args(argv)
     t = time.perf_counter()
     srv = serve_http.make_server(args, port=0)
@@ -2979,18 +3022,16 @@ def http_path(name: str, argv: list, smi: str) -> dict:
         code, body = _http(url + "/healthz")
         if code != 200 or not body["ok"]:
             raise AssertionError(f"/healthz: {code} {body}")
-        _, _, images, _ = synthetic_dataset(num_train=0, num_test=512,
-                                            seed=23)
         for rows in SERVE_ROWS:
             x = images[:rows]
             bucket = next(s for s in srv.batch_sizes if s >= rows)
             padded = np.zeros((bucket, 32, 32, 3), np.float32)
-            padded[:rows] = normalize(x)
+            padded[:rows] = normalized[rows]
             want = twin.predict(padded)[:rows].tolist()
-            alone = twin.predict(normalize(x)).tolist()
+            alone = twin.predict(normalized[rows]).tolist()
             for form, obj in (("uint8", {"images": x.tolist()}),
                               ("normalized",
-                               {"images": normalize(x).tolist()})):
+                               {"images": normalized[rows].tolist()})):
                 code, body = _http(url + "/predict", obj)
                 if code != 200 or body["classes"] != want:
                     raise AssertionError(f"{name}: {rows} rows {form}: "
@@ -3026,6 +3067,7 @@ def http_path(name: str, argv: list, smi: str) -> dict:
         log(f"serve_http {name}: 8 concurrent requests as their serial "
             f"twins; /healthz, 400, 413; median latency_ms by bucket "
             f"{medians} (requests by bucket {SERVE_TIMED}) [{smi}]")
+        HOST_CALLS[counted] = native_calls()
         return medians
     finally:
         srv.shutdown()
@@ -3047,16 +3089,19 @@ def deploy_path(pretrained: str, alexnet_v1: str, smi: str, launches,
     shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
     os.makedirs(DEPLOY_DIR)
     reset()
+    native_reset()
     members = fleet_path(pretrained, smi)
+    HOST_CALLS["fleet"] = native_calls()
     dispute_path(members, smi)
     export_path(members)
     folded = http_path("folded ResNet18Private member 0", [
         "--ckpt", members[0], "--arch", "resnet", "--passport-config",
-        RESNET_CONFIG], smi)
+        RESNET_CONFIG], smi, "http_folded")
     before = launches()["passport_epilogue"]
     v1 = http_path("AlexNet V1 --no-folded --no-private", [
         "--ckpt", alexnet_v1, "--arch", "alexnet", "--passport-config",
-        ALEXNET_CONFIG, "--no-folded", "--no-private"], smi)
+        ALEXNET_CONFIG, "--no-folded", "--no-private"], smi,
+        "http_alexnet_v1")
     counts = launches()
     if counts["passport_epilogue"] == before:
         raise AssertionError("the unfolded V1 server launched no K2")
@@ -3103,6 +3148,148 @@ def norm_types_check(seed: int, smi: str) -> None:
         del gpu_model
         train_parity(seed, steps=1, cpu_model=cpu_model, label=label)
     log(f"norm types: every case agrees card vs CPU [{smi}]")
+
+
+# --------------------------------------------------------- host augment
+
+def _native_fns():
+    from deepipr_tpu_torch.data import native
+
+    return native.normalize_native, native.augment_normalize_native
+
+
+def native_reset() -> None:
+    """Set the calls of data/native.py's functions to 0 (just before a
+    host-fed path; ``native_calls`` reads them just after)."""
+    for fn in _native_fns():
+        fn.calls = 0
+
+
+def native_calls() -> dict:
+    return {fn.__name__: fn.calls for fn in _native_fns()}
+
+
+def host_augment_cases(seed: int) -> list:
+    """(function, label, batch, draws or None, pad): the training batch at
+    pad 4 whose first eight images take every extreme draw (offsets 0 and
+    2 pad on both axes, the flip off and on), the trigger set's pair at pad
+    0 (one flipped), the CIFAR validation batch and the ImageNet stream's
+    batch normalized."""
+    rng = np.random.default_rng(seed)
+    cifar = rng.integers(0, 256, (TRAIN_BATCH, 32, 32, 3), dtype=np.uint8)
+    pad = TRAIN_PAD
+    ys = rng.integers(0, 2 * pad + 1, TRAIN_BATCH).astype(np.int32)
+    xs = rng.integers(0, 2 * pad + 1, TRAIN_BATCH).astype(np.int32)
+    flips = (rng.random(TRAIN_BATCH) < 0.5).astype(np.uint8)
+    corners = [(y, x, f) for y in (0, 2 * pad) for x in (0, 2 * pad)
+               for f in (0, 1)]
+    for i, (y, x, f) in enumerate(corners):
+        ys[i], xs[i], flips[i] = y, x, f
+    pair = rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    zeros = np.zeros(2, np.int32)
+    imagenet = rng.integers(0, 256, (IMAGENET_BATCH, IMAGENET_SIZE,
+                                     IMAGENET_SIZE, 3), dtype=np.uint8)
+    return [
+        ("augment_normalize_native", f"{TRAIN_BATCH}x32x32x3 pad {pad}",
+         cifar, (ys, xs, flips), pad),
+        ("augment_normalize_native", "2x32x32x3 pad 0", pair,
+         (zeros, zeros, np.array([0, 1], np.uint8)), 0),
+        ("normalize_native", f"{TRAIN_BATCH}x32x32x3", cifar, None, 0),
+        ("normalize_native",
+         f"{IMAGENET_BATCH}x{IMAGENET_SIZE}x{IMAGENET_SIZE}x3", imagenet,
+         None, 0),
+    ]
+
+
+def _host_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps + 1):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return 1e3 * statistics.median(times[1:])
+
+
+def host_augment(seed: int, smi: str) -> dict:
+    """data/native.py on the card's host: csrc/augment.cpp built with g++;
+    each case of ``host_augment_cases`` against the plain version within
+    HOST_TOL, the padding and flip positions exact (a constant-255 batch
+    with its first column black); both timed on the host. Returns
+    {function: record} for the host_kernels line."""
+    from deepipr_tpu_torch.data import native
+    from deepipr_tpu_torch.data.datasets import IMAGENET_MEAN, IMAGENET_STD
+
+    t = time.perf_counter()
+    native.get_lib()
+    log(f"host_augment: g++ {' '.join(native.GXX_FLAGS)} -> "
+        f"{native.library_path()} in {time.perf_counter() - t:.2f} s; host "
+        f"{native.host_id()!r}, "
+        f"os.cpu_count() {os.cpu_count()}")
+    stats = (IMAGENET_MEAN, IMAGENET_STD)
+    out = {}
+    for name, label, batch, draws, pad in host_augment_cases(seed):
+        if draws is None:
+            def run(fn, x):
+                return fn(x, *stats)
+
+            fns = (native.normalize_native, native.normalize_plain)
+        else:
+            def run(fn, x):
+                return fn(x, *draws, pad, *stats)
+
+            fns = (native.augment_normalize_native,
+                   native.augment_normalize_plain)
+        got, want = (run(fn, batch) for fn in fns)
+        err = float(np.abs(got - want).max())
+        if got.dtype != np.float32 or got.shape != batch.shape:
+            raise AssertionError(f"host_augment {name} {label}: "
+                                 f"{got.dtype} {got.shape}")
+        np.testing.assert_allclose(got, want, **HOST_TOL)
+        white = np.full_like(batch, 255)
+        white[:, :, 0] = 0
+        got, want = (run(fn, white) for fn in fns)
+        if not np.array_equal(got > 0, want > 0):
+            raise AssertionError(f"host_augment {name} {label}: padding or "
+                                 "flip positions differ from the plain "
+                                 "version")
+        reps = HOST_REPS if batch.size < 2**22 else HOST_REPS_LARGE
+        ms = _host_ms(lambda: run(fns[0], batch), reps)
+        plain_ms = _host_ms(lambda: run(fns[1], batch), reps)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "reps": reps}
+        log(f"host_augment {name} {label}: {json.dumps(row)} "
+            f"[{smi}; host {native.host_id()!r}, {os.cpu_count()} "
+            f"cores]")
+        entry = out.setdefault(name, {
+            "name": name, "route": "host c++ (g++ "
+            + " ".join(native.GXX_FLAGS) + ")",
+            "source": "deepipr_tpu_torch/csrc/augment.cpp",
+            "replaces": "deepipr_tpu/data/native.py (native/augment.cpp)",
+            "tol": HOST_TOL, "host": native.host_id(),
+            "cpu_count": os.cpu_count(), "by_shape": {}})
+        entry["by_shape"][label] = row
+    for entry in out.values():
+        entry["max_abs_err"] = max(r["max_abs_err"]
+                                   for r in entry["by_shape"].values())
+    return out
+
+
+def host_calls_report(host: dict) -> list:
+    """Each host-fed path's native calls (HOST_CALLS) checked against
+    HOST_FED, into the host_kernels records: raises if a path did not run
+    or made no call of a function it must call."""
+    missing = [(path, fn) for path, fns in HOST_FED.items() for fn in fns
+               if not HOST_CALLS.get(path, {}).get(fn)]
+    if missing:
+        raise AssertionError(f"host-fed paths without native calls: "
+                             f"{missing}; counted {HOST_CALLS}")
+    for name, entry in host.items():
+        by_path = {path: c[name] for path, c in HOST_CALLS.items()
+                   if c.get(name)}
+        entry["calls"] = sum(by_path.values())
+        entry["calls_by_path"] = by_path
+    log(f"host_augment: native calls by path {json.dumps(HOST_CALLS)}")
+    return list(host.values())
 
 
 # ------------------------------------------------------------ data path
@@ -3444,12 +3631,14 @@ def data_path(best: str, smi: str, launches, reset) -> dict:
     # one host-fed ResNet18Private f32 epoch over 12,800 images
     with step_events(records):
         reset()
+        native_reset()
         run = train_v23.main(CLI_COMMON + [
             "--passport-config", RESNET_CONFIG, "--key-type", "shuffle",
             "--pretrained-path", os.path.join(
                 CLI_LOGDIR, "resnet_synthetic_v0", "1", "models",
                 "last.ckpt"), "--epochs", "1", "--logdir", logdir],
             synthetic_train=TRAIN_IMAGES)
+        HOST_CALLS["data_resnet_host_f32"] = native_calls()
         got = out["data_resnet_host_f32"] = launches()
         want = {"passport_epilogue": RESNET_K2 * (len(run.valid_data) + 1)}
         if got != {**dict.fromkeys(got, 0), **want}:
@@ -3460,6 +3649,7 @@ def data_path(best: str, smi: str, launches, reset) -> dict:
         del run
 
     reset()
+    native_reset()
     t = time.perf_counter()
     exp = train_v23.main(
         ["--arch", "resnet", "--dataset", "synthetic", "--batch-size",
@@ -3467,6 +3657,7 @@ def data_path(best: str, smi: str, launches, reset) -> dict:
          "--transfer-learning", "--tl-dataset", "caltech-101",
          "--tl-scheme", "rtal", "--pretrained-path", best, "--epochs", "1",
          "--logdir", logdir, "--data-root", DATA_DIR])
+    HOST_CALLS["data_caltech_tl"] = native_calls()
     got = out["data_caltech_tl"] = launches()
     rows = history(os.path.join(exp.logdir, "tl_1"))
     log(f"data: Caltech-101 transfer learning rtal, 1 epoch, in "
@@ -4162,6 +4353,8 @@ def main() -> int:
                 if case is cases[0]:
                     timing[form] = t
         del cases, timer
+    with phase("host_augment"):
+        host = host_augment(args.seed, smi)
 
     wrappers = {"passport_epilogue": passport_epilogue,
                 "fused_augment": fused_augment}
@@ -4317,7 +4510,9 @@ def main() -> int:
         if form in by_shape:
             entry["by_shape"] = by_shape[form]
         kernels.append(entry)
+    host_kernels = host_calls_report(host)
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
+    print(json.dumps({"host_kernels": host_kernels}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

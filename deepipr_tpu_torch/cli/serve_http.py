@@ -12,7 +12,9 @@ at run time, interop/fold.py), public branch only; ``--no-folded`` serves
 the model itself (a V1 model, ``--no-private``, then derives its affines
 from the passports in every request: K2 on the card). Requests are padded
 to a fixed set of batch sizes, each warmed before the server answers, so
-cuDNN's algorithm choice and the kernel build never land on a request.
+cuDNN's algorithm choice and the kernel build never land on a request; the
+host library that normalizes uint8 requests (data/native.py) is built
+before that.
 
   POST /predict   {"images": [[H][W][C]...]} (uint8 0-255 or normalized
                   floats) -> {"classes": [...], "latency_ms": ...}
@@ -30,6 +32,9 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from deepipr_tpu_torch.data import native
+from deepipr_tpu_torch.data.datasets import normalize
 
 BATCH_SIZES = (1, 8, 64, 256)
 
@@ -119,13 +124,12 @@ class _Handler(BaseHTTPRequestHandler):
             normalized = req.get("normalized")
             if normalized is None:
                 normalized = x.max() <= 8.0
-            if not normalized:
-                from deepipr_tpu_torch.data.datasets import normalize
-
-                x = normalize(np.clip(x, 0, 255).astype(np.uint8))
         except Exception as e:
             return self._json(400, {"error": f"bad request: {e}"})
         try:
+            # the request is valid from here on: a fault is the server's
+            if not normalized:
+                x = normalize(np.clip(x, 0, 255).astype(np.uint8))
             padded = next(s for s in sizes if s >= len(x))
             xp = np.zeros((padded,) + x.shape[1:], np.float32)
             xp[: len(x)] = x
@@ -140,7 +144,10 @@ class _Handler(BaseHTTPRequestHandler):
 
 def make_server(args, port=0, device="cuda"):
     """The server on 127.0.0.1:``port`` (0: any free port), its model on
-    ``device`` and warmed at every batch size; call ``serve_forever``."""
+    ``device`` and warmed at every batch size; call ``serve_forever``. The
+    host library that normalizes uint8 requests is built first, so that a
+    missing compiler fails here and not in a request."""
+    native.get_lib()
     predictor = build_predictor(args, device)
     # Request threads share one model. Predictor.logits enters eval mode
     # for each call and restores the mode it found (utils/mode.py): with

@@ -7,11 +7,12 @@ RandomHorizontalFlip + ImageNet normalization (:268-293), the crop dropped
 in transfer-learning mode (:282-284); test transforms normalization only;
 the trigger set (WatermarkNN folder + labels-cifar.txt, CenterCrop, batch 2,
 drop_last) cycled onto training batches (:142-193). Batches are NumPy,
-augmented on the host by the NumPy path of the JAX package, draw for draw
-(its native C++ path belongs to that package). Caltech is loaded whole at
-32 px (Resize+CenterCrop, the per-class 80/20 split, :14-139, 274-278);
-ImageNet is streamed from its class folders (``StreamingImageFolder``,
-:196-243). Images decode with PIL, imported when a loader is called.
+augmented and normalized on the host by the C++ of ``data/native.py``, as
+the JAX package's are, draw for draw and byte for byte. Caltech is loaded
+whole at 32 px (Resize+CenterCrop, the per-class 80/20 split, :14-139,
+274-278); ImageNet is streamed from its class folders
+(``StreamingImageFolder``, :196-243). Images decode with PIL, imported
+when a loader is called.
 Every set is read from local files, archives already on disk included
 (``data/acquire.py``); under ``--download`` a missing archive is fetched
 first.
@@ -24,6 +25,8 @@ import pickle
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+from deepipr_tpu_torch.data import native
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -332,29 +335,17 @@ class StreamingImageFolder:
 
 
 def normalize(batch_u8: np.ndarray) -> np.ndarray:
-    """uint8 NHWC -> f32 NHWC, scaled to [0, 1] then ImageNet mean/std."""
-    x = batch_u8.astype(np.float32) / 255.0
-    return (x - IMAGENET_MEAN) / IMAGENET_STD
-
-
-def _apply_crop_flip(batch_u8, ys, xs, flips, pad):
-    """Zero-pad crop at (ys, xs) + horizontal flip where ``flips``."""
-    n, h, w, c = batch_u8.shape
-    out = batch_u8
-    if pad > 0:
-        padded = np.pad(out, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
-                        mode="constant")
-        out = np.stack([padded[i, ys[i]:ys[i] + h, xs[i]:xs[i] + w]
-                        for i in range(n)])
-    out = out.copy()
-    out[flips] = out[flips, :, ::-1]
-    return out
+    """uint8 NHWC -> f32 NHWC, scaled to [0, 1] then ImageNet mean/std, in
+    the native C++ (``data/native.py``) as the JAX package does."""
+    return native.normalize_native(batch_u8, IMAGENET_MEAN, IMAGENET_STD)
 
 
 def augment_normalize(batch_u8: np.ndarray, rng: np.random.Generator,
                       pad: int, random_crop: bool = True) -> np.ndarray:
     """Train transform: zero-pad random crop + hflip + normalization, with
-    the JAX package's draws from ``rng`` (crop rows, crop columns, flips)."""
+    the JAX package's draws from ``rng`` (crop rows, crop columns, flips),
+    in one pass of the native C++ (``data/native.py``) as that package
+    does."""
     n = batch_u8.shape[0]
     crop_pad = pad if (random_crop and pad > 0) else 0
     if crop_pad:
@@ -364,7 +355,9 @@ def augment_normalize(batch_u8: np.ndarray, rng: np.random.Generator,
         ys = np.zeros(n, np.int32)
         xs = np.zeros(n, np.int32)
     flips = rng.random(n) < 0.5
-    return normalize(_apply_crop_flip(batch_u8, ys, xs, flips, crop_pad))
+    return native.augment_normalize_native(
+        batch_u8, ys, xs, flips.astype(np.uint8), crop_pad, IMAGENET_MEAN,
+        IMAGENET_STD)
 
 
 class DataLoader:

@@ -4,12 +4,13 @@
 ``deepipr_tpu/data/{datasets,acquire}.py`` on folders and archives written
 here by PIL and the repository's data writers (tools/make_imagefolder.py,
 tools/make_cifar_archive.py): every loader's arrays and batches bit for
-bit. The JAX package may normalize in native C++ (data/native.py), a
-float32 rounding apart from NumPy; its native entry points are switched
-off here so that both packages take the NumPy path, and the uint8 pixels
-are held without that switch too. Then the experiment on a tiny ImageNet
-folder and a tiny Caltech one: the same ``_batches()`` as the JAX
-package's experiment, and one epoch trained.
+bit. Both packages normalize in native C++ (data/native.py), a float32
+rounding apart from their NumPy paths: the ``numpy_jax`` tests switch both
+to the NumPy path (the port's plain versions), and the streaming and
+``prepare_dataset`` tests run again with both native paths as they are.
+Then the experiment on a tiny ImageNet folder and a tiny Caltech one: the
+same ``_batches()`` as the JAX package's experiment, and one epoch
+trained.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from deepipr_tpu.data import acquire as jax_acquire
 from deepipr_tpu.data import datasets as jax_datasets
 from deepipr_tpu.data import native as jax_native
 
-from deepipr_tpu_torch.data import acquire, datasets
+from deepipr_tpu_torch.data import acquire, datasets, native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -48,10 +49,15 @@ def _one_intra_op_thread():
 
 @pytest.fixture
 def numpy_jax(monkeypatch):
-    """The JAX package's NumPy path in place of its native C++ one."""
+    """Both packages' NumPy paths in place of their native C++ ones: the
+    JAX package's native entry points off, the port's plain versions in
+    place of its native functions."""
     monkeypatch.setattr(jax_native, "normalize_native", lambda *a: None)
     monkeypatch.setattr(jax_native, "augment_normalize_native",
                         lambda *a: None)
+    monkeypatch.setattr(native, "normalize_native", native.normalize_plain)
+    monkeypatch.setattr(native, "augment_normalize_native",
+                        native.augment_normalize_plain)
 
 
 # ------------------------------------------------------------- writers
@@ -181,8 +187,7 @@ STREAMS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(STREAMS))
-def test_streaming_image_folder_matches_jax(imagenet, numpy_jax, name):
+def _streams_match(imagenet, name):
     root = os.path.join(imagenet, "ILSVRC2012", "train")
     kw = dict(batch_size=4, size=16, seed=3, workers=2, **STREAMS[name])
     got = datasets.StreamingImageFolder(root, **kw)
@@ -190,6 +195,19 @@ def test_streaming_image_folder_matches_jax(imagenet, numpy_jax, name):
     assert (len(got), got.num_examples, got.classes) == \
         (len(want), want.num_examples, want.classes)
     assert_same_batches(got, want, epochs=2)
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_streaming_image_folder_matches_jax(imagenet, numpy_jax, name):
+    _streams_match(imagenet, name)
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_streaming_image_folder_native_matches_jax(imagenet, name):
+    """Both packages' native normalize as they are: the same bytes."""
+    calls = native.normalize_native.calls
+    _streams_match(imagenet, name)
+    assert (native.normalize_native.calls > calls) == ("raw" not in name)
 
 
 def test_streaming_raw_pixels_match_jax_native_path(imagenet):
@@ -298,10 +316,7 @@ PREPARED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(PREPARED))
-def test_prepare_dataset_matches_jax(data_root, numpy_jax, name):
-    """Every dataset name, from the same files, through both packages'
-    prepare_dataset: the same loaders' batches, two training epochs."""
+def _prepared_match(data_root, name):
     args = prepare_args(data_root, name.split()[0], **PREPARED[name])
     got_train, got_test = datasets.prepare_dataset(args)
     want_train, want_test = jax_datasets.prepare_dataset(args)
@@ -309,6 +324,22 @@ def test_prepare_dataset_matches_jax(data_root, numpy_jax, name):
     assert len(got_train) == len(want_train)
     assert_same_batches(got_train, want_train, epochs=2)
     assert_same_batches(got_test, want_test)
+
+
+@pytest.mark.parametrize("name", sorted(PREPARED))
+def test_prepare_dataset_matches_jax(data_root, numpy_jax, name):
+    """Every dataset name, from the same files, through both packages'
+    prepare_dataset: the same loaders' batches, two training epochs."""
+    _prepared_match(data_root, name)
+
+
+@pytest.mark.parametrize("name", sorted(PREPARED))
+def test_prepare_dataset_native_matches_jax(data_root, name):
+    """As ``test_prepare_dataset_matches_jax`` with both packages'
+    native C++ as they are: the same bytes, through the native path."""
+    calls = native.normalize_native.calls
+    _prepared_match(data_root, name)
+    assert native.normalize_native.calls > calls
 
 
 def test_prepare_dataset_refuses_download_and_multihost(tmp_path, published,

@@ -217,10 +217,8 @@ def test_synthetic_dataset_and_normalize_match_jax():
                                           seed=3)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    # the JAX package may normalize in native code: a float32 rounding apart
-    np.testing.assert_allclose(datasets.normalize(got[0]),
-                               jax_datasets.normalize(got[0]),
-                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(datasets.normalize(got[0]),
+                                  jax_datasets.normalize(got[0]))
 
 
 # -------------------------------------------------------- entry points
