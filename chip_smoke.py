@@ -5,7 +5,9 @@
 
 Phases, each of which raises on a failed check (so the exit code is not 0):
 
-1. Environment: the card, its power limit, the float32 settings.
+1. Environment: the card, its power limit, and the float32 settings as
+   the port's ``resolve_device`` pins them (TF32 off in cuDNN and cuBLAS:
+   f32 on the card is IEEE f32); nothing else sets them.
 2. Build: every CUDA kernel of ``deepipr_tpu_torch/csrc`` with nvcc (sm_90a)
    into ``build/deepipr_tpu_torch/``, with ptxas's registers, spills and
    shared memory; each kernel's PTX read for 64-bit integer division (which
@@ -183,6 +185,18 @@ draws (PERF.md §6).
     ResNet18Private epoch and Caltech-101 TL, phase 12's TL runs, phase
     16's fleet and two servers), each set to 0 just before the path and
     read just after; a path without them fails the run.
+
+21. What TF32 did (``precision``, after phase 20 in the run): ResNet18Private
+    V2 f32 against the CPU, (a) the private forward at batch 256 as phase 4
+    takes it and (b) one V2 step at batch 32 as phase 6's parity takes it,
+    each run first with torch's default flags forced back on after the
+    entry point resolved its device (cuDNN's f32 convolutions in TF32, as
+    the port computed before its pin; the gaps printed, not held), then
+    pinned, held to phase 4's and phase 6's f32 bounds. The gaps: relative
+    to the norm and elementwise, each on a line of its own.
+
+The gloo ranks of phase 19 record both TF32 flags after their first entry
+points; the run fails unless they read False on every rank.
 
 Each phase's wall time is printed on a line of its own.
 
@@ -496,9 +510,20 @@ def phase(name: str):
 
 # ----------------------------------------------------------- environment
 
+def tf32_flags() -> dict:
+    """The TF32 flags as read now (every entry point's ``resolve_device``
+    pins both off)."""
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
 def environment() -> str:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """The card, its power limit and the f32 settings after the port's
+    first ``resolve_device``, which nothing else sets; fails unless both
+    TF32 flags read False."""
+    from deepipr_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
@@ -507,8 +532,11 @@ def environment() -> str:
         f"{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(smi)
-    log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    flags = tf32_flags()
+    log(f"after resolve_device('cuda'): "
+        + " ".join(f"{k}={v}" for k, v in flags.items()))
+    if any(flags.values()):
+        raise AssertionError(f"resolve_device left TF32 on: {flags}")
     return smi
 
 
@@ -1188,7 +1216,7 @@ def serve_path(gpu_model, cpu_model, batches, forged, launches,
     return metrics
 
 
-def throughput(gpu_model, smi: str, label: str = "f32 (TF32 off)",
+def throughput(gpu_model, smi: str, label: str = "f32",
                private: bool = True) -> None:
     from deepipr_tpu_torch.serve import Predictor, verify_ownership
 
@@ -1297,7 +1325,7 @@ def resnet_serve(seed: int, smi: str, launches, reset,
             raise AssertionError(f"{form} did not carry the {arch} serving "
                                  f"path: {counts}")
         out[f"{prefix}_serve_{'bf16' if dtype else 'f32'}"] = counts
-        label = "bf16" if dtype else "f32 (TF32 off)"
+        label = "bf16" if dtype else "f32"
         throughput(gpu_model, smi, f"{MODEL_NAMES[arch]} {label}")
         where_time_goes(gpu_model, smi, per_forward=K2_PER_FORWARD[arch])
         log(f"peak device memory: "
@@ -1384,12 +1412,58 @@ def train_path(seed: int, smi: str, launches, reset, dtype=torch.float32,
     best = min(seconds[1:])
     rate = steps * TRAIN_BATCH / best
     log(f"throughput: train {MODEL_NAMES[arch]} V2 batch {TRAIN_BATCH} "
-        f"{'bf16' if bf16 else 'f32 (TF32 off)'}, device-resident epoch "
+        f"{'bf16' if bf16 else 'f32'}, device-resident epoch "
         f"incl. K1: {rate:.1f} img/s (best of {TIMED_EPOCHS[arch]} epochs: "
         f"{', '.join(f'{s:.3f}' for s in seconds[1:])} s) [{smi}]")
     log(f"peak device memory, training: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return model, state, xs, ys, counts, held_out, rate
+
+
+def parity_inputs(seed: int, dtype=torch.float32, arch: str = "resnet18",
+                  cpu_model=None) -> dict:
+    """``train_parity``'s inputs: a V2 model on the CPU (``cpu_model``, or
+    ``train_model``'s at ``seed + 3``), its starting parameters, a set of
+    two batches, their permutation and each step's augmentation draws."""
+    from deepipr_tpu_torch.data.datasets import synthetic_dataset
+    from deepipr_tpu_torch.data.device_augment import draw_augment
+
+    x, y, _, _ = synthetic_dataset(num_train=2 * PARITY_BATCH, num_test=0,
+                                   size=32, seed=seed + 3)
+    gen = torch.Generator().manual_seed(seed + 4)
+    perm = torch.randperm(len(x), generator=gen)
+    draws = [draw_augment(gen, PARITY_BATCH, TRAIN_PAD) for _ in range(2)]
+    if cpu_model is None:
+        cpu_model = train_model(seed + 3, "cpu",
+                                dtype if dtype == BF16 else None, arch)
+    start = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
+    return {"x": x, "y": y, "perm": perm, "draws": draws, "dtype": dtype,
+            "model": cpu_model, "start": start}
+
+
+def parity_run(inputs: dict, dev: str, model, steps: int,
+               around=contextlib.nullcontext) -> dict:
+    """``steps`` train steps of ``model`` (on ``dev``) over ``inputs``
+    through the epoch entry point, the steps themselves run inside
+    ``around()``, after the entry point has resolved its device. Returns
+    the epoch's mean metrics; ``model`` holds the trained state."""
+    from deepipr_tpu_torch.train.epoch import (
+        device_resident,
+        make_epoch_train_fn,
+    )
+    from deepipr_tpu_torch.train.state import TrainState
+
+    draws = inputs["draws"]
+    fn = make_epoch_train_fn(
+        model, True, PARITY_BATCH, TRAIN_PAD, device=dev,
+        out_dtype=inputs["dtype"],
+        draws=lambda step, n: tuple(t.to(dev) for t in draws[step]))
+    state = TrainState.create(model, TRAIN_LR)
+    xs, ys = device_resident(inputs["x"], inputs["y"], dev)
+    perm = inputs["perm"][:steps * PARITY_BATCH].to(dev)
+    with around():
+        state, metrics = fn(state, xs, ys, 0, perm=perm)
+        return {k: v.item() for k, v in metrics.items()}
 
 
 def train_parity(seed: int, dtype=torch.float32, arch: str = "resnet18",
@@ -1400,39 +1474,43 @@ def train_parity(seed: int, dtype=torch.float32, arch: str = "resnet18",
     (BF16_UPDATE_TOL per parameter, BF16_WHOLE_UPDATE_TOL for the whole
     update), the metrics and BN statistics at BF16_TRAIN_TOL.
     ``cpu_model``: a V2 model on the CPU in place of ``train_model``'s."""
-    from deepipr_tpu_torch.data.datasets import synthetic_dataset
-    from deepipr_tpu_torch.data.device_augment import draw_augment
-    from deepipr_tpu_torch.train.epoch import (
-        device_resident,
-        make_epoch_train_fn,
-    )
-    from deepipr_tpu_torch.train.state import TrainState
-
-    x, y, _, _ = synthetic_dataset(num_train=2 * PARITY_BATCH, num_test=0,
-                                   size=32, seed=seed + 3)
-    gen = torch.Generator().manual_seed(seed + 4)
-    perm = torch.randperm(len(x), generator=gen)
-    draws = [draw_augment(gen, PARITY_BATCH, TRAIN_PAD) for _ in range(2)]
-    bf16 = dtype == BF16
-    if cpu_model is None:
-        cpu_model = train_model(seed + 3, "cpu", dtype if bf16 else None,
-                                arch)
-    start = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
-    runs = {}
-    for dev, model in (("cpu", cpu_model),
-                       ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
-        fn = make_epoch_train_fn(
-            model, True, PARITY_BATCH, TRAIN_PAD, device=dev, out_dtype=dtype,
-            draws=lambda step, n, dev=dev: tuple(t.to(dev)
-                                                 for t in draws[step]))
-        state = TrainState.create(model, TRAIN_LR)
-        state, metrics = fn(state, *device_resident(x, y, dev), 0,
-                            perm=perm[:steps * PARITY_BATCH].to(dev))
-        runs[dev] = (model, {k: v.item() for k, v in metrics.items()})
-    (cpu, cpu_metrics), (gpu, gpu_metrics) = runs["cpu"], runs["cuda"]
+    inputs = parity_inputs(seed, dtype, arch, cpu_model)
+    cpu = inputs["model"]
+    gpu = copy.deepcopy(cpu).to("cuda")
+    cpu_metrics = parity_run(inputs, "cpu", cpu, steps)
+    gpu_metrics = parity_run(inputs, "cuda", gpu, steps)
     compare_training(f"train parity {label or arch} ({dtype}): {steps} "
-                     f"steps at batch {PARITY_BATCH}", cpu, gpu, start, cpu_metrics,
-                     gpu_metrics, bf16)
+                     f"steps at batch {PARITY_BATCH}", cpu, gpu,
+                     inputs["start"], cpu_metrics, gpu_metrics, dtype == BF16)
+
+
+def training_gaps(cpu, gpu, start: dict, cpu_metrics: dict,
+                  gpu_metrics: dict, tol: dict) -> dict:
+    """How far the card's trained model ``gpu`` lies from the CPU's
+    ``cpu`` (both from the ``start`` parameters): each state entry's
+    largest excess over ``tol`` (negative: within it) and largest
+    difference, each metric's, and each parameter's update difference over
+    the update's norm ("update") and the whole update's."""
+    gpu_state = gpu.state_dict()
+    beyond, largest, update_err, diffs, updates = {}, {}, {}, [], []
+    for name, want in cpu.state_dict().items():
+        got = gpu_state[name].cpu()
+        limit = tol["atol"] + tol["rtol"] * want.abs()
+        beyond[name] = ((got - want).abs() - limit).max().item()
+        largest[name] = (got - want).abs().max().item()
+        if name in start:
+            update = want - start[name]
+            update_err[name] = ((got - want).norm().item()
+                                / max(update.norm().item(), 1e-30))
+            diffs.append((got - want).ravel())
+            updates.append(update.ravel())
+    metrics = {k: (abs(gpu_metrics[k] - v),
+                   abs(gpu_metrics[k] - v) - tol["atol"] - tol["rtol"] * abs(v))
+               for k, v in cpu_metrics.items()}
+    return {"beyond": beyond, "largest": largest, "update": update_err,
+            "whole": (torch.cat(diffs).norm()
+                      / torch.cat(updates).norm()).item(),
+            "metrics": metrics}
 
 
 def compare_training(label: str, cpu, gpu, start: dict, cpu_metrics: dict,
@@ -1446,38 +1524,102 @@ def compare_training(label: str, cpu, gpu, start: dict, cpu_metrics: dict,
     log(f"{label}, {what}: metrics {gpu_metrics} vs {cpu_metrics}")
     tol = BF16_TRAIN_TOL if bf16 else TRAIN_TOL
     update_tol = BF16_UPDATE_TOL if bf16 else UPDATE_TOL
-    gpu_state = gpu.state_dict()
-    beyond, update_err, diffs, updates = {}, {}, [], []
-    for name, want in cpu.state_dict().items():
-        got = gpu_state[name].cpu()
-        limit = tol["atol"] + tol["rtol"] * want.abs()
-        beyond[name] = ((got - want).abs() - limit).max().item()
-        if name in start:
-            update = want - start[name]
-            update_err[name] = ((got - want).norm().item()
-                                / max(update.norm().item(), 1e-30))
-            diffs.append((got - want).ravel())
-            updates.append(update.ravel())
-    whole = (torch.cat(diffs).norm() / torch.cat(updates).norm()).item()
+    gaps = training_gaps(cpu, gpu, start, cpu_metrics, gpu_metrics, tol)
+    beyond, update_err = gaps["beyond"], gaps["update"]
     worst = max(beyond, key=beyond.get)
     worst_update = max(update_err, key=update_err.get)
     log(f"  largest excess over rtol {tol['rtol']} / atol {tol['atol']}: "
         f"{beyond[worst]:.3g} at {worst}; largest parameter-update "
         f"difference {update_err[worst_update]:.3g} of the update's norm at "
-        f"{worst_update}; whole update {whole:.3g}")
-    failed = [k for k, v in cpu_metrics.items()
-              if not abs(gpu_metrics[k] - v) <= tol["atol"] + tol["rtol"] * abs(v)]
+        f"{worst_update}; whole update {gaps['whole']:.3g}")
+    failed = [k for k, (_, excess) in gaps["metrics"].items()
+              if not excess <= 0]
     failed += [k for k in beyond
                if k not in start and beyond[k] > 0]  # BN stats, passports
     failed += [k for k, e in update_err.items() if e > update_tol]
-    if bf16 and whole > BF16_WHOLE_UPDATE_TOL:
-        failed.append(f"whole update {whole}")
+    if bf16 and gaps["whole"] > BF16_WHOLE_UPDATE_TOL:
+        failed.append(f"whole update {gaps['whole']}")
     if failed:
         raise AssertionError(f"{label}: {what} training differ in "
                              f"{failed}")
     log(f"  metrics, BN statistics and passports within rtol {tol['rtol']} "
         f"/ atol {tol['atol']}; every parameter's update within "
         f"{update_tol} of its norm")
+
+
+def logits_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The card's logits ``got`` against the CPU's ``want``: the
+    difference over their norm, the largest elementwise difference, and
+    the largest excess over LOGITS_TOL (negative: within it)."""
+    diff = (got - want).abs()
+    limit = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * want.abs()
+    return {"norm": ((got - want).norm() / want.norm()).item(),
+            "max_abs": diff.max().item(),
+            "excess": (diff - limit).max().item()}
+
+
+def precision(seed: int, smi: str) -> dict:
+    """What TF32 did to the port's f32 (phase 21): ResNet18Private V2 f32
+    on the card against the CPU, each item run twice, first with torch's
+    default flags forced back on after the entry point has resolved its
+    device (``torch_default_tf32``: what the port computed before the pin;
+    printed, not held), then pinned (held to the f32 bounds). (a) The
+    private forward at batch 256, as ``serve_path`` takes it; (b) one V2
+    step at batch 32, as ``train_parity`` takes it. Returns the gaps."""
+    from deepipr_tpu_torch.serve import Predictor
+    from deepipr_tpu_torch.utils.device import torch_default_tf32
+
+    runs = (("TF32 forced on", torch_default_tf32),
+            ("pinned", contextlib.nullcontext))
+    out = {}
+    cpu_model = random_model(seed)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    image = request_batches(1, seed)[0]["image"]
+    want = Predictor(cpu_model, ind=1, device="cpu").logits(image)
+    private = Predictor(gpu_model, ind=1)
+    for run, around in runs:
+        with around():
+            got = private.logits(image).cpu()
+        gap = out[f"(a) {run}"] = logits_gap(got, want)
+        log(f"precision (a) private logits, batch {REQUEST_BATCH}, {run}: "
+            f"card vs CPU {gap['norm']:.3g} of their norm, largest "
+            f"elementwise difference {gap['max_abs']:.3g}, largest excess "
+            f"over rtol {LOGITS_TOL['rtol']} / atol {LOGITS_TOL['atol']} "
+            f"{gap['excess']:.3g} [{smi}]")
+    torch.testing.assert_close(got, want, **LOGITS_TOL)  # the pinned run's
+
+    inputs = parity_inputs(seed)
+    cpu, start = inputs["model"], inputs["start"]
+    cards = {run: copy.deepcopy(cpu).to("cuda") for run, _ in runs}
+    cpu_metrics = parity_run(inputs, "cpu", cpu, 1)
+    for run, around in runs:
+        gpu_metrics = parity_run(inputs, "cuda", cards[run], 1, around)
+        gaps = training_gaps(cpu, cards[run], start, cpu_metrics,
+                             gpu_metrics, TRAIN_TOL)
+        stats = [k for k in gaps["beyond"] if k not in start]
+        worst = max(gaps["update"], key=gaps["update"].get)
+        gap = out[f"(b) {run}"] = {
+            "metrics_rel": max(d / max(abs(cpu_metrics[k]), 1e-30)
+                               for k, (d, _) in gaps["metrics"].items()),
+            "metrics_excess": max(e for _, e in gaps["metrics"].values()),
+            "stats_max_abs": max(gaps["largest"][k] for k in stats),
+            "stats_excess": max(gaps["beyond"][k] for k in stats),
+            "update": gaps["update"][worst], "update_at": worst,
+            "whole": gaps["whole"]}
+        log(f"precision (b) one V2 step, batch {PARITY_BATCH}, {run}: "
+            f"metrics {gap['metrics_rel']:.3g} apart relative to the CPU's "
+            f"(excess over rtol {TRAIN_TOL['rtol']} / atol "
+            f"{TRAIN_TOL['atol']} {gap['metrics_excess']:.3g}); BN "
+            f"statistics and passports {gap['stats_max_abs']:.3g} apart at "
+            f"most (excess {gap['stats_excess']:.3g}); largest parameter "
+            f"update {gap['update']:.3g} of its norm apart at "
+            f"{gap['update_at']} (bound {UPDATE_TOL}), the whole update "
+            f"{gap['whole']:.3g} [{smi}]")
+        if run == "pinned":
+            compare_training(f"precision (b) one V2 step, {run}", cpu,
+                             cards[run], start, cpu_metrics, gpu_metrics)
+    log(f"precision: {json.dumps(out)}")
+    return out
 
 
 def trained_serving(model, held_out) -> None:
@@ -1961,7 +2103,7 @@ def alexnet_serve(seed: int, smi: str, launches, reset) -> dict:
                                      f"serving path: {got}")
             counts[form] += got[form]
             label = (f"AlexNet {'V2' if private else 'V1'} "
-                     f"{'bf16' if dtype else 'f32 (TF32 off)'}")
+                     f"{'bf16' if dtype else 'f32'}")
             throughput(gpu_model, smi, label, private)
             where_time_goes(gpu_model, smi, per_forward=ALEXNET_K2)
             del gpu_model, cpu_model
@@ -2514,7 +2656,7 @@ def fold_path(seed: int, smi: str, launches, reset,
             for k, v in launches().items():
                 counts[k] = counts.get(k, 0) + v
             if timed:
-                label = f"{arch} V2 {'bf16' if dtype else 'f32 (TF32 off)'}"
+                label = f"{arch} V2 {'bf16' if dtype else 'f32'}"
                 folded_throughput(gpu_model, smi, label)
             del gpu_model
     return counts
@@ -3761,7 +3903,8 @@ def parallel_rank(rank: int, directory: str) -> None:
     model-sharded state against the replicated one on a 2x2 mesh and the
     sharded state's checkpoint round trip, (b) two steps of a
     ``shard_ensemble`` fleet of two on the 2x2 mesh. Writes
-    ``rank<r>.pt``: launch counts, seconds, digests of the states (rank 0
+    ``rank<r>.pt``: launch counts, seconds, the TF32 flags as read after
+    its first entry points, digests of the states (rank 0
     also the state and metrics of (a); the ranks at batch coordinate 0
     their member of (b))."""
     from deepipr_tpu_torch.ops.fused_augment import fused_augment
@@ -3798,8 +3941,6 @@ def parallel_rank(rank: int, directory: str) -> None:
         snapshot,
     )
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     store = os.path.abspath(os.path.join(directory, "store"))
     maybe_initialize_distributed(f"file://{store}", PARALLEL_RANKS, rank,
@@ -3843,6 +3984,8 @@ def parallel_rank(rank: int, directory: str) -> None:
                                 perm=perm[half:],
                                 wm_perm=inputs["wm_perm"].cuda())
         out["digest_a"][kind] = _digest(flat_state(state))
+        if kind == "v2":  # this process sets no flag: the entry points do
+            out["tf32"] = tf32_flags()
         if rank == 0:
             out["state_a"][kind] = {k: v.cpu() for k, v in
                                     model.state_dict().items()}
@@ -4006,18 +4149,31 @@ TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", "1"]
 
 
+def deterministic_train_v23(argv: list) -> None:
+    """``cli.train_v23``'s ``main`` on ``argv`` with cuDNN's deterministic
+    algorithms (``--deterministic-train-v23``, (c)'s two runs): in IEEE f32
+    cuDNN's default choice sums some gradients in an order that varies
+    between runs, so two runs of the same arithmetic agree bit for bit only
+    with it, as (d) holds its two steps."""
+    from deepipr_tpu_torch.cli import train_v23
+
+    torch.backends.cudnn.deterministic = True
+    train_v23.main(argv)
+
+
 def start_parallel_cli() -> dict:
     """(c), started beside the ranks: ``cli.train_v23 --multihost`` under
     torchrun with one NCCL rank for PARALLEL_CLI_EPOCHS epochs, and the same
-    command without --multihost. Returns {name: (process, logdir, start)}."""
+    command without --multihost, each with cuDNN deterministic
+    (``deterministic_train_v23``). Returns {name: (process, logdir,
+    start)}."""
     import shutil
 
     runs = {}
-    for name, cmd in (("multihost", TORCHRUN + [
-            "-m", "deepipr_tpu_torch.cli.train_v23", *PARALLEL_CLI,
-            "--multihost"]), ("plain", [
-            sys.executable, "-m", "deepipr_tpu_torch.cli.train_v23",
-            *PARALLEL_CLI])):
+    script = [os.path.abspath(__file__), "--deterministic-train-v23"]
+    for name, cmd in (("multihost", TORCHRUN + script + [
+            *PARALLEL_CLI, "--multihost"]), ("plain", [
+            sys.executable, *script, *PARALLEL_CLI])):
         logdir = os.path.join(PARALLEL_DIR, f"cli_{name}")
         shutil.rmtree(logdir, ignore_errors=True)
         runs[name] = (subprocess.Popen(
@@ -4187,7 +4343,10 @@ def parallel_checks(inputs: dict, ref: dict, seed: int, smi: str,
     for r, out in enumerate(ranks):
         log(f"parallel_path rank {r}: seconds "
             f"{json.dumps({k: round(v, 3) for k, v in out['seconds'].items()})}"
-            f", launches {out['launches']}")
+            f", launches {out['launches']}, after its first entry points "
+            f"{out['tf32']}")
+        if any(out["tf32"].values()):
+            raise AssertionError(f"rank {r} ran with TF32 on: {out['tf32']}")
 
     # (a) the ranks against one process, and against each other
     start = {k: v.clone() for k, v in
@@ -4274,6 +4433,8 @@ def main() -> int:
     parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--parallel-dir", help=argparse.SUPPRESS)
     parser.add_argument("--resume-check", help=argparse.SUPPRESS)
+    parser.add_argument("--deterministic-train-v23", nargs=argparse.REMAINDER,
+                        help=argparse.SUPPRESS)
     parser.add_argument("--parallel-only", action="store_true",
                         help="the environment, the build and phase 19 only "
                              "(prints no result)")
@@ -4286,6 +4447,9 @@ def main() -> int:
         return 0
     if args.resume_check is not None:
         resume_check(args.resume_check, args.parallel_dir)
+        return 0
+    if args.deterministic_train_v23 is not None:
+        deterministic_train_v23(args.deterministic_train_v23)
         return 0
     if args.parallel_only:
         smi = environment()
@@ -4355,6 +4519,8 @@ def main() -> int:
         del cases, timer
     with phase("host_augment"):
         host = host_augment(args.seed, smi)
+    with phase("precision"):
+        precision(args.seed, smi)
 
     wrappers = {"passport_epilogue": passport_epilogue,
                 "fused_augment": fused_augment}

@@ -2,12 +2,24 @@
 
 Entry points default to the GPU and never drop to the CPU on their own: a
 caller without a GPU gets an error unless it asks for ``device="cpu"``.
+
+f32 on the card is IEEE f32, as in the JAX reference's tests (they pin
+``jax_default_matmul_precision = "highest"``, so its convolutions
+accumulate in full f32). Every entry point resolves its device here, and
+``resolve_device`` pins TF32 off in cuDNN and cuBLAS whenever it resolves
+a CUDA device: torch's default runs f32 convolutions in TF32 (a 10-bit
+mantissa), which no card-vs-CPU bound holds. There is no switch, no
+environment variable and no TF32 mode. This module is the one place that
+writes the flags, through the legacy ``allow_tf32`` setters: once torch's
+newer ``fp32_precision`` settings have been written, reading the legacy
+flags raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
-from typing import Union
+from typing import Iterator, Union
 
 import torch
 from torch import nn
@@ -16,13 +28,35 @@ DeviceLike = Union[str, torch.device]
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
-    """``device`` as a ``torch.device``; raises for CUDA without a GPU."""
+    """``device`` as a ``torch.device``; raises for CUDA without a GPU. A
+    CUDA device pins TF32 off (module docstring); the CPU touches nothing."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU"
+            )
+        _set_tf32(cudnn=False, matmul=False)
     return dev
+
+
+def _set_tf32(cudnn: bool, matmul: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@contextlib.contextmanager
+def torch_default_tf32() -> Iterator[None]:
+    """Torch's own defaults for the block (cuDNN's f32 convolutions in
+    TF32, cuBLAS's f32 matmuls in IEEE f32), pinned off again after: what
+    the port's entry points computed before the pin. No entry point calls
+    it; chip_smoke.py's precision phase measures that fault with it."""
+    _set_tf32(cudnn=True, matmul=False)
+    try:
+        yield
+    finally:
+        _set_tf32(cudnn=False, matmul=False)
 
 
 def model_device(model: nn.Module) -> torch.device:

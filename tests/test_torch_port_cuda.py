@@ -39,6 +39,7 @@ from deepipr_tpu_torch.utils.config import (
     construct_passport_kwargs,
     load_passport_config,
 )
+from deepipr_tpu_torch.utils.device import resolve_device
 
 CONFIGS = Path(__file__).resolve().parent.parent / "passport_configs"
 
@@ -47,8 +48,7 @@ CONFIGS = Path(__file__).resolve().parent.parent / "passport_configs"
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    return resolve_device("cuda")  # f32 is IEEE f32: TF32 pinned off
 
 
 # NCHW: the serving path's layer4 blocks at batch 256 and 1 (signature
@@ -468,7 +468,6 @@ def test_split_private_train_step_matches_cpu(cuda):
     """One ResNet9 V2 split-private step (K1 on the card, its plain version
     on the CPU) from the same weights and draws; chip_smoke.py's
     card-vs-CPU tolerance (convolutions sum in other orders)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     kw, _ = construct_passport_kwargs(
         load_passport_config(str(CONFIGS / "resnet9_passport.json")),
         "bn", "shuffle", 0.1)

@@ -28,12 +28,13 @@ On the card:
   rows), and the epoch is replayed from its starting state
   (``replay_epoch``), written to ``<out>/f1_s<seed>.json``.
 
-    python3 tests/torch_port_record.py f1-state --seed 1 --epoch 30 \
+    python3 tests/torch_port_record.py f1-state --seed 1 [--epoch 30] \
         --part model|momentum --out build/f1_model
 
   the same V1 run to that epoch, its replay, and one half of the epoch's
   starting state (the model's entries and the step, or the momentum), each
-  with the SHA-256 of the parameters.
+  with the SHA-256 of the parameters. Without ``--epoch``, the first dip
+  of the full V1 run.
 
 On the CPU:
 
@@ -425,14 +426,26 @@ def stage(args) -> None:
 
 def f1_state(args) -> None:
     """Scheme 0 and the V1 run to ``--epoch`` at ``--seed``, the epoch's
-    replay, and one half of its starting state."""
+    replay, and one half of its starting state. Without ``--epoch`` the V1
+    run goes its full length first and its first dip is the epoch (the cut
+    run held to its rows)."""
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     deterministic()
     os.makedirs(args.out, exist_ok=True)
     module, *argv = train_argv(0, args.seed)
     record_step(args.out, module, argv, seed=args.seed, scheme=0)
-    got = f1_capture(args.seed, None, args.epoch, args.out)
+    rows, epoch = None, args.epoch
+    if epoch is None:
+        module, *argv = train_argv(1, args.seed)
+        rec = record_step(args.out, module, argv, seed=args.seed, scheme=1)
+        rows = history(rec["out"].logdir)
+        epoch = first_dip(rows)
+        print(json.dumps({"seed": args.seed, "dips": dips(rows),
+                          "first_dip": epoch, "card": smi()}), flush=True)
+        if epoch is None:
+            raise SystemExit(f"seed {args.seed}: the V1 run has no dip")
+    got = f1_capture(args.seed, rows, epoch, args.out)
     data = torch.load(got["start"], map_location="cpu", weights_only=True)
     part = ({"model": data["model"], "step": data["step"]}
             if args.part == "model" else {"optimizer": data["optimizer"]})
@@ -796,7 +809,7 @@ def cpu_replay(record: str, model_part: str, momentum_part: str,
     run.state.optimizer.load_state_dict(o["optimizer"])
     run.state.step = int(m["step"])
     jax_out = jax_replay(run, card)
-    start = os.path.join(os.path.dirname(dst) or ".", "f1_start.ckpt")
+    start = os.path.splitext(dst)[0] + "_start.ckpt"  # two replays may run
     torch.save({"model": m["model"], "optimizer": o["optimizer"],
                 "step": int(m["step"])}, start)
     flat = [r for rows in card["perm"] for r in rows]
@@ -821,6 +834,7 @@ def cpu_replay(record: str, model_part: str, momentum_part: str,
             f"{name}_{kind}": [step[layer][ch] for step in r[kind]]
             for name, r in runs.items()
             for kind in ("train_scales", "scales")}
+    result["every_channel"] = every_channel_gaps(runs)
     result["train_crossings"] = {name: crossings(
         {**r, "b": card["b"], "start_step": card["start_step"]},
         "train_scales") for name, r in runs.items()}
@@ -832,6 +846,35 @@ def cpu_replay(record: str, model_part: str, momentum_part: str,
         json.dump({k: v for k, v in card.items()
                    if k not in ("scales", "train_scales", "b")}, f)
     return result
+
+
+def every_channel_gaps(runs: Dict) -> Dict:
+    """Over every passport channel, crossing or not: the largest
+    difference of its train-mode scale between two runs over the epoch,
+    over that scale's largest size in any run; of card vs the port's CPU
+    and of the two CPUs, the largest over the channels (with its channel
+    and size: a channel whose scale stays near 0 divides by little), the
+    99th percentile and the median."""
+    layers = list(runs["card"]["train_scales"][0])
+    out = {}
+    for a, b in (("card", "port_cpu"), ("port_cpu", "jax_cpu")):
+        gaps, sizes, names = [], [], []
+        for layer in layers:
+            each = {n: np.array([step[layer] for step in r["train_scales"]])
+                    for n, r in runs.items()}
+            size = np.max(np.abs(np.stack(list(each.values()))), axis=(0, 1))
+            gaps.append(np.max(np.abs(each[a] - each[b]), axis=0)
+                        / np.maximum(size, 1e-30))
+            sizes.append(size)
+            names += [f"{layer}[{ch}]" for ch in range(size.size)]
+        gaps, sizes = np.concatenate(gaps), np.concatenate(sizes)
+        at = int(np.argmax(gaps))
+        out[f"{a} vs {b}"] = {"max": float(gaps[at]), "at": names[at],
+                              "at_size": float(sizes[at]),
+                              "p99": float(np.percentile(gaps, 99)),
+                              "median": float(np.median(gaps)),
+                              "channels": int(gaps.size)}
+    return out
 
 
 # ------------------------------------------------------------- the tables
@@ -866,8 +909,10 @@ def record_row(root: str, run: str, scheme: int) -> Dict:
 
 def summary() -> Dict:
     """The record's tables in PERF.md §6, from the committed CSVs and JSONs:
-    the port's runs by seed beside JAX's record, and the cross-package
-    check on seed 1."""
+    the port's runs by seed beside JAX's record, the cross-package check
+    on seed 1, and each F1 replay's table with, in "F1 gaps", the largest
+    part of a crossing channel's scale between the card and the port's
+    CPU and between the two CPUs."""
     out = {"seeds": {}, "cross": {}}
     for scheme in (1, 2):
         rows = {name: record_row(root, f"resnet_synthetic_v{scheme}_demo200",
@@ -907,11 +952,20 @@ def summary() -> Dict:
         with open(f"{RECORD}/cross_v{scheme}_s1.json") as f:
             cross["cpu check"] = json.load(f)
         out["cross"][f"V{scheme}"] = cross
+    # the replays without a suffix ran cuDNN's f32 convolutions in TF32
+    # (torch's default, before resolve_device pinned it off); the
+    # "_pinned" ones with TF32 off, as every entry point now runs
     for seed in (1, 3):
-        path = f"{RECORD}/f1_s{seed}_replay.json"
-        if os.path.exists(path):
-            with open(path) as f:
-                out[f"F1 seed {seed}"] = f1_table(json.load(f))
+        for suffix, name in (("", ""), ("_pinned", " pinned")):
+            path = f"{RECORD}/f1_s{seed}_replay{suffix}.json"
+            if os.path.exists(path):
+                with open(path) as f:
+                    out[f"F1 seed {seed}{name}"] = f1_table(json.load(f))
+    out["F1 gaps"] = {
+        key[3:]: {pair: max((c[pair] for c in t["channels"].values()),
+                            default=None)
+                  for pair in ("card vs port_cpu", "port_cpu vs jax_cpu")}
+        for key, t in out.items() if key.startswith("F1 seed")}
     return out
 
 
@@ -952,6 +1006,8 @@ def f1_table(replay: Dict) -> Dict:
             "port_cpu vs jax_cpu": max(abs(a - b) for a, b in zip(
                 v["port_cpu_train_scales"], v["jax_cpu_train_scales"])) / size}
     out["channels"] = channels
+    if "every_channel" in replay:
+        out["every channel"] = replay["every_channel"]
     return out
 
 
@@ -974,7 +1030,7 @@ def main(argv=None) -> None:
     s.add_argument("--f1", action="store_true")
     f = sub.add_parser("f1-state")
     f.add_argument("--seed", type=int, required=True)
-    f.add_argument("--epoch", type=int, required=True)
+    f.add_argument("--epoch", type=int)
     f.add_argument("--part", choices=["model", "momentum"], required=True)
     f.add_argument("--out", required=True)
     v = sub.add_parser("convert")
