@@ -28,13 +28,13 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from deepipr_tpu_torch.utils.device import DeviceLike, resolve_device
+from deepipr_tpu_torch.utils.spans import span
 
 _END = object()
 _POLL_S = 0.05  # how often a blocked producer looks for an abandoned consumer
@@ -78,9 +78,10 @@ def prefetch(iterable: Iterable, size: int = 2,
     producer thread, ``size`` batches ahead, each array as a tensor on
     ``device``. Leaving the loop early stops the producer.
 
-    ``stats``: where given, the producer appends each batch's seconds in
-    ``iterable`` (the host's work: decode, crop, stack) to
-    ``stats["host_s"]`` and its seconds staging and queueing the copy to
+    Each batch's seconds in ``iterable`` (the host's work: decode, crop,
+    stack) are a ``data.produce`` span, its seconds staging and queueing the
+    copy a ``data.stage`` span (utils/spans.py). ``stats``: where given, the
+    producer also appends those two durations to ``stats["host_s"]`` and
     ``stats["stage_s"]``."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
@@ -132,15 +133,15 @@ def prefetch(iterable: Iterable, size: int = 2,
                 torch.cuda.set_device(dev)  # this thread's current device
             it, n = iter(iterable), 0
             while True:
-                t0 = time.perf_counter()
-                item = next(it, _END)
+                with span("data.produce") as made:
+                    item = next(it, _END)
                 if item is _END:
                     break
-                t1 = time.perf_counter()
-                moved = convert(item, n % (size + 2))
+                with span("data.stage") as staged:
+                    moved = convert(item, n % (size + 2))
                 if stats is not None:
-                    stats["host_s"].append(t1 - t0)
-                    stats["stage_s"].append(time.perf_counter() - t1)
+                    stats["host_s"].append(made.seconds)
+                    stats["stage_s"].append(staged.seconds)
                 if not put(moved):
                     return
                 n += 1

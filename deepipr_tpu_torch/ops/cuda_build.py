@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from deepipr_tpu_torch.utils.spans import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepipr_tpu_torch"
 NVCC_FLAGS = (
@@ -98,10 +100,20 @@ def ptx(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
+    """The kernel's shared library, built first if needed. Its first load
+    in a process is an ``ops.kernel_load`` span and counts in
+    ``load.compiled`` (nvcc ran) or ``load.loaded`` (a library built before
+    was reused), by kernel name."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        with span("ops.kernel_load"):
+            compiled = build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+        counts = load.compiled if compiled else load.loaded
+        counts[name] = counts.get(name, 0) + 1
         _LIBS[name] = lib
     return lib
+
+
+load.compiled = {}
+load.loaded = {}

@@ -25,6 +25,7 @@ from deepipr_tpu_torch.utils.device import (
     resolve_device,
 )
 from deepipr_tpu_torch.utils.mode import eval_mode
+from deepipr_tpu_torch.utils.spans import span
 
 
 class Predictor:
@@ -53,17 +54,32 @@ class Predictor:
         self.model = model
         self.ind = ind
         self.force_passport = force_passport
+        self.requests = 0  # calls of predict and logits: each one's unit id
+
+    def _request(self):
+        self.requests += 1
+        return span("serve.request", unit=self.requests - 1)
 
     @torch.inference_mode()
-    def logits(self, x) -> torch.Tensor:
-        """x: NHWC f32 batch (numpy or tensor) -> (N, classes) logits, in
-        eval mode whatever the model's mode."""
-        with eval_mode(self.model):
-            return self.model(nhwc_to_nchw(x, self.device), ind=self.ind,
+    def _logits(self, x) -> torch.Tensor:
+        with span("serve.stage"):
+            x = nhwc_to_nchw(x, self.device)
+        with span("serve.forward"), eval_mode(self.model):
+            return self.model(x, ind=self.ind,
                               force_passport=self.force_passport).logits
 
+    def logits(self, x) -> torch.Tensor:
+        """x: NHWC f32 batch (numpy or tensor) -> (N, classes) logits, in
+        eval mode whatever the model's mode. Nothing here waits for the
+        device: the caller's read of the result does."""
+        with self._request():
+            return self._logits(x)
+
     def predict(self, x) -> torch.Tensor:
-        return self.logits(x).argmax(dim=-1)
+        with self._request():
+            logits = self._logits(x)
+            with span("serve.classes"):
+                return logits.argmax(dim=-1)
 
 
 def passports(model) -> Dict[str, torch.Tensor]:

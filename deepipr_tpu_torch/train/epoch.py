@@ -38,6 +38,7 @@ from deepipr_tpu_torch.train.state import TrainState
 from deepipr_tpu_torch.train.steps import DrawFn, DropoutFn, make_train_step
 from deepipr_tpu_torch.utils.device import DeviceLike, resolve_device, \
     seeded_generator
+from deepipr_tpu_torch.utils.spans import span
 
 
 def epoch_permutation(perm: torch.Tensor, batch_size: int
@@ -102,40 +103,42 @@ def make_epoch_train_fn(model, private: bool, batch_size: int, pad: int,
                  perm: Optional[torch.Tensor] = None,
                  wm_perm: Optional[torch.Tensor] = None,
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        n = images_u8.shape[0]
-        if perm is None:
-            perm = torch.randperm(n, generator=seeded_generator(dev, epoch_key),
-                                  device=dev)
-        steps, rows = epoch_permutation(torch.as_tensor(perm, device=dev),
-                                        batch_size)
-        rows = rows.to(torch.int32)
-        if wm_images_u8 is not None:
-            m = wm_images_u8.shape[0]
-            if wm_perm is None:
-                wm_perm = torch.randperm(
-                    m, generator=seeded_generator(dev, epoch_key, 1),
-                    device=dev)
-            wm_perm = torch.as_tensor(wm_perm, device=dev).long()
-            cycle = torch.arange(wm_take, device=dev)
-            weight = None
-            if wm_take != wm_batch:
-                weight = torch.ones(batch_size + wm_take, device=dev)
-                weight[batch_size + wm_batch:] = 0.0
-
-        history = []
-        for t in range(steps):
-            idx = rows[t]
-            batch = {"image": images_u8, "index": idx,
-                     "label": labels[idx.long()]}
+        with span("train.epoch"):
+            n = images_u8.shape[0]
+            if perm is None:
+                perm = torch.randperm(
+                    n, generator=seeded_generator(dev, epoch_key), device=dev)
+            steps, rows = epoch_permutation(torch.as_tensor(perm, device=dev),
+                                            batch_size)
+            rows = rows.to(torch.int32)
             if wm_images_u8 is not None:
-                wm_idx = wm_perm[(t * wm_batch + cycle) % m]
-                batch["wm_image"] = wm_images_u8[wm_idx]
-                batch["wm_label"] = wm_labels[wm_idx]
-                if weight is not None:
-                    batch["weight"] = weight
-            state, metrics = step_fn(state, batch)
-            history.append(metrics)
-        return state, {k: torch.stack([h[k] for h in history]).mean()
-                       for k in history[0]}
+                m = wm_images_u8.shape[0]
+                if wm_perm is None:
+                    wm_perm = torch.randperm(
+                        m, generator=seeded_generator(dev, epoch_key, 1),
+                        device=dev)
+                wm_perm = torch.as_tensor(wm_perm, device=dev).long()
+                cycle = torch.arange(wm_take, device=dev)
+                weight = None
+                if wm_take != wm_batch:
+                    weight = torch.ones(batch_size + wm_take, device=dev)
+                    weight[batch_size + wm_batch:] = 0.0
+
+            history = []
+            for t in range(steps):
+                idx = rows[t]
+                batch = {"image": images_u8, "index": idx,
+                         "label": labels[idx.long()]}
+                if wm_images_u8 is not None:
+                    wm_idx = wm_perm[(t * wm_batch + cycle) % m]
+                    batch["wm_image"] = wm_images_u8[wm_idx]
+                    batch["wm_label"] = wm_labels[wm_idx]
+                    if weight is not None:
+                        batch["weight"] = weight
+                state, metrics = step_fn(state, batch)
+                history.append(metrics)
+            with span("train.metrics"):
+                return state, {k: torch.stack([h[k] for h in history]).mean()
+                               for k in history[0]}
 
     return epoch_fn

@@ -61,6 +61,7 @@ from deepipr_tpu_torch.utils.device import (
     seeded_generator,
 )
 from deepipr_tpu_torch.utils.mode import eval_mode
+from deepipr_tpu_torch.utils.spans import span
 
 DrawFn = Callable[[int, int], Draws]
 # dropout(step, shapes) -> one boolean keep mask of each shape
@@ -293,21 +294,26 @@ def make_train_step(model, private: bool, split_branches: bool = True,
         if getattr(state, "model_sharded", None) and state.mesh is not mesh:
             raise ValueError("the state is sharded over another mesh than "
                              "this step's")
-        model.train()
-        x, y, n, (lo, hi) = inputs(state, batch)
-        w = batch.get("weight")
-        if w is not None:
-            w = torch.as_tensor(w, dtype=torch.float32, device=dev)
-            denom = w.sum()
-            w = w[lo:hi]
-        elif mesh is not None:
-            denom = torch.tensor(float(n), device=dev)
+        with span("train.step", unit=state.step):
+            return _step(state, batch)
 
-        shapes = dropout_shapes(n)
-        fwd = {}
-        if shapes:
-            fwd["dropout_masks"] = [m[lo:hi] for m in
-                                    dropout(state.step, shapes)]
+    def _step(state: TrainState, batch):
+        model.train()
+        with span("train.input"):
+            x, y, n, (lo, hi) = inputs(state, batch)
+            w = batch.get("weight")
+            if w is not None:
+                w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+                denom = w.sum()
+                w = w[lo:hi]
+            elif mesh is not None:
+                denom = torch.tensor(float(n), device=dev)
+
+            shapes = dropout_shapes(n)
+            fwd = {}
+            if shapes:
+                fwd["dropout_masks"] = [m[lo:hi] for m in
+                                        dropout(state.step, shapes)]
         if remat == "full":
             fwd["remat"] = True
         whole = gather_model_parallel(state)
@@ -332,28 +338,31 @@ def make_train_step(model, private: bool, split_branches: bool = True,
         sync = (synced_batch_stats(axis_group(mesh, "batch"), shards)
                 if shards > 1 else contextlib.nullcontext())
         with sync:
-            if fork is not None:
-                fork_name, _ = fork
-                if prefix_bufs:  # none under the gn, in and none norm types
-                    torch._foreach_copy_(snapshot, prefix_bufs)
-                out0 = forward(x, ind=0, tap_at=fork_name, **fwd)
-                out1 = forward(out0.tap, ind=1, start_at=fork_name, **fwd)
-            elif private:
-                out0 = forward(x, ind=0, **fwd)
-                out1 = forward(x, ind=1, **fwd)
-            else:
-                out = forward(x, **fwd)
-                ce = ce_of(out.logits)
-                sl, sacc = total_sign_loss(collect_aux(out.aux), dev)
-                metrics = {"acc": acc_of(out.logits)}
-            if private:
-                ce = ce_of(out0.logits) + ce_of(out1.logits)
-                sl, sacc = total_sign_loss(collect_aux(out1.aux), dev)
-                metrics = {"acc_public": acc_of(out0.logits),
-                           "acc_private": acc_of(out1.logits)}
+            with span("train.forward"):
+                if fork is not None:
+                    fork_name, _ = fork
+                    if prefix_bufs:  # none under the gn, in and none norms
+                        torch._foreach_copy_(snapshot, prefix_bufs)
+                    out0 = forward(x, ind=0, tap_at=fork_name, **fwd)
+                    out1 = forward(out0.tap, ind=1, start_at=fork_name,
+                                   **fwd)
+                elif private:
+                    out0 = forward(x, ind=0, **fwd)
+                    out1 = forward(x, ind=1, **fwd)
+                else:
+                    out = forward(x, **fwd)
+                    ce = ce_of(out.logits)
+                    sl, sacc = total_sign_loss(collect_aux(out.aux), dev)
+                    metrics = {"acc": acc_of(out.logits)}
+                if private:
+                    ce = ce_of(out0.logits) + ce_of(out1.logits)
+                    sl, sacc = total_sign_loss(collect_aux(out1.aux), dev)
+                    metrics = {"acc_public": acc_of(out0.logits),
+                               "acc_private": acc_of(out1.logits)}
             # on a mesh every rank makes the same sign-loss gradient; the
             # gradient sum counts it once
-            (ce + (sl / shards if shards > 1 else sl)).backward()
+            with span("train.backward"):
+                (ce + (sl / shards if shards > 1 else sl)).backward()
         metrics["loss"] = ce
         if shards > 1:
             parts = torch.stack([v.detach() for v in metrics.values()])
@@ -361,10 +370,11 @@ def make_train_step(model, private: bool, split_branches: bool = True,
                                          extra=parts)
             metrics = dict(zip(metrics, total.unbind()))
         if prefix_bufs:
-            with torch.no_grad():
+            with span("train.prefix_stats"), torch.no_grad():
                 moved = torch._foreach_sub(prefix_bufs, snapshot)
                 torch._foreach_add_(prefix_bufs, moved, alpha=BN_MOMENTUM)
-        state.apply_gradients()
+        with span("train.optimizer"):
+            state.apply_gradients()
         metrics.update({"sign_loss": sl, "sign_acc": sacc})
         return state, {k: v.detach() for k, v in metrics.items()}
 
